@@ -1,0 +1,394 @@
+"""Groth16 fast path: evaluation-form QAP over a roots-of-unity domain,
+device-resident.
+
+Mirrors ``go_snark_study_tpu/models/groth16_fast.py`` (``FastGroth16``,
+``DevicePk``) on PyTorch, with the four hand-written CUDA kernels under it:
+
+  * constraints live at the 2^k-th roots of unity, Z(x) = x^n - 1;
+  * setup evaluates the QAP polynomials at tau via barycentric Lagrange
+    values, commits with the fixed-base engine (K1 adds), and keeps the
+    proving key ON DEVICE, affine-normalised (one tree batch inversion on
+    K2), so every proof MSM runs mixed adds;
+  * prove packs the witness, builds one signed-digit sort plan shared by
+    the three same-witness MSMs (G2 included), runs four G1 MSMs and one G2
+    MSM (K1), each with its degeneracy flag and complete-formula re-run,
+    builds H(x) with the coset-trick NTT pipeline (K3 from 2^14 up, K4
+    below, K2 for every product), and combines the window sums on the host;
+  * proofs verify under :func:`.groth16.verify_proof`.
+
+Left for later: the JAX package's ``warmup`` (its compile families have no
+counterpart here) and ``prove_sharded`` (multi-device).  The JAX prover's
+three-thread pool existed for concurrent XLA compiles; the port enqueues
+the G1, G2 and H sides in that order on one stream.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ..bn128 import constants as C
+from ..ops.curve_ops import G1Batch, G2Batch, tree_map
+from ..ops.fixed_base import FixedBaseEngine, scalar_windows
+from ..ops.limbs import FieldKernels, resolve_device
+from ..ops.msm import MSMEngine, combine_window_sums, scalars_to_limbs
+from ..ops.ntt import NTTEngine
+from ..synthetic import SparseR1CS
+from .context import ProtocolContext, default_context
+from .groth16 import Pk, Proof, Setup, Toxic
+
+__all__ = ["FastGroth16", "DevicePk"]
+
+_COSET_G = 5  # multiplicative generator of Fr*, not in any 2^k subgroup
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(1, (n - 1).bit_length())
+
+
+@dataclass
+class DevicePk:
+    """Device-resident proving key: affine point pytrees, lane-padded.
+
+    Identity padding lanes are (0, 0, 0) — absorbed by the branchless group
+    law, so padded MSMs are exact."""
+
+    n: int  # evaluation domain size (power of two)
+    m: int  # signal count
+    lo: int  # first private index (n_public + 1)
+    m_pad: int
+    mp_pad: int  # padded private count
+    n_pad: int
+    at: object = None  # G1 affine, m_pad lanes
+    b1: object = None  # G1 affine, m_pad lanes
+    b2: object = None  # G2 affine, m_pad lanes
+    cdelta: object = None  # G1 affine, mp_pad lanes (private signals only)
+    ptau: object = None  # G1 affine, n_pad lanes (tau^i Z(tau)/delta)
+
+
+class FastGroth16:
+    """Holds the engines for one device; reusable across circuits and proof
+    calls.  ``device=None`` is the card (and raises without one); the CPU
+    runs the kernels' plain versions and only when asked for."""
+
+    def __init__(self, ctx: Optional[ProtocolContext] = None, device=None):
+        self.ctx = ctx or default_context()
+        self.device = resolve_device(device)
+        self.Kq = FieldKernels(C.Q, self.device)
+        self.Kr = FieldKernels(C.R, self.device)
+        self.g1b, self.g2b = G1Batch(self.Kq), G2Batch(self.Kq)
+        self.ntt = NTTEngine(self.Kr)
+        bn = self.ctx.bn
+        self.msm_g1 = MSMEngine(self.g1b, bn.g1, C.R)
+        self.msm_g2 = MSMEngine(self.g2b, bn.g2, C.R)
+        self._fb_g1: Optional[FixedBaseEngine] = None
+        self._fb_g2: Optional[FixedBaseEngine] = None
+
+    # -- fixed-base engines (their host tables are built on first use) --
+    @property
+    def fb_g1(self) -> FixedBaseEngine:
+        if self._fb_g1 is None:
+            bn = self.ctx.bn
+            self._fb_g1 = FixedBaseEngine(self.g1b, bn.g1, bn.g1.g, C.R)
+        return self._fb_g1
+
+    @property
+    def fb_g2(self) -> FixedBaseEngine:
+        if self._fb_g2 is None:
+            bn = self.ctx.bn
+            self._fb_g2 = FixedBaseEngine(self.g2b, bn.g2, bn.g2.g, C.R)
+        return self._fb_g2
+
+    # ------------------------------------------------------------------
+    def _lagrange_at_tau(self, n: int, tau: int):
+        """L_j(tau) = w^j (tau^n - 1) / (n (tau - w^j)) for j = 0..n-1,
+        via one batched inversion (Montgomery's trick)."""
+        r = C.R
+        w = self.ntt.root_of_unity(n)
+        pw = [1] * n
+        for j in range(1, n):
+            pw[j] = pw[j - 1] * w % r
+        denoms = [(tau - pw[j]) % r for j in range(n)]
+        prefix = [1] * (n + 1)
+        for j in range(n):
+            prefix[j + 1] = prefix[j] * denoms[j] % r
+        inv_all = pow(prefix[n], -1, r)
+        invs = [0] * n
+        for j in range(n - 1, -1, -1):
+            invs[j] = inv_all * prefix[j] % r
+            inv_all = inv_all * denoms[j] % r
+        zt = (pow(tau, n, r) - 1) % r
+        ninv = pow(n, -1, r)
+        scale = zt * ninv % r
+        return [pw[j] * scale % r * invs[j] % r for j in range(n)]
+
+    # ------------------------------------------------------------------
+    def _pad_for(self, n: int) -> int:
+        return n + ((-n) % self.msm_g1.pad_quantum(n))
+
+    def _device_pk_from_scalars(
+        self, n: int, m: int, lo: int, ats, bts, cdelta_priv, ladder
+    ) -> DevicePk:
+        """Commit scalar vectors with the fixed-base engines, keeping every
+        result on device, then affine-normalise once."""
+        m_pad = self._pad_for(m)
+        mp_pad = self._pad_for(m - lo)
+        n_pad = self._pad_for(n)
+
+        def commit(fb, bg, scalars, lanes):
+            scs = list(scalars) + [0] * (lanes - len(scalars))
+            jac = fb.batch_mul_device(scalar_windows(scs, C.R, self.device))
+            return bg.to_affine(jac)
+
+        return DevicePk(
+            n=n,
+            m=m,
+            lo=lo,
+            m_pad=m_pad,
+            mp_pad=mp_pad,
+            n_pad=n_pad,
+            at=commit(self.fb_g1, self.g1b, ats, m_pad),
+            b1=commit(self.fb_g1, self.g1b, bts, m_pad),
+            b2=commit(self.fb_g2, self.g2b, bts, m_pad),
+            cdelta=commit(self.fb_g1, self.g1b, cdelta_priv, mp_pad),
+            ptau=commit(self.fb_g1, self.g1b, ladder[:n], n_pad),
+        )
+
+    # ------------------------------------------------------------------
+    def setup(self, r1cs: SparseR1CS, rng=None) -> Setup:
+        """Evaluation-form trusted setup; same artifact shapes as the JAX
+        package's (groth16.go:94-222).  The proving key stays
+        device-resident (``pk._device``) and is also materialised as host
+        lists."""
+        ctx = self.ctx
+        r = C.R
+        n = _next_pow2(r1cs.n_constraints)
+        m = r1cs.n_signals
+
+        tox = Toxic(
+            t=ctx.rand_fr(rng),
+            kalpha=ctx.rand_fr(rng),
+            kbeta=ctx.rand_fr(rng),
+            kgamma=ctx.rand_fr(rng),
+            kdelta=ctx.rand_fr(rng),
+        )
+        setup = Setup(toxic=tox)
+        pk, vk = setup.pk, setup.vk
+
+        L = self._lagrange_at_tau(n, tox.t)
+
+        def col_evals(rows):
+            out = [0] * m
+            for j, row in enumerate(rows):
+                lj = L[j]
+                for i, coeff in row.items():
+                    out[i] = (out[i] + coeff * lj) % r
+            return out
+
+        ats = col_evals(r1cs.A)
+        bts = col_evals(r1cs.B)
+        cts = col_evals(r1cs.C)
+
+        # Z(x) = x^n - 1
+        pk.z = [r - 1] + [0] * (n - 1) + [1]
+        zt = (pow(tox.t, n, r) - 1) % r
+        inv_delta = pow(tox.kdelta, -1, r)
+        inv_gamma = pow(tox.kgamma, -1, r)
+
+        # powers-of-tau ladder (pre-scaled by Z(t)/delta like the reference,
+        # groth16.go:139-149), length n+1 = len(z); H has degree <= n-2 so
+        # the device key keeps the first n entries
+        ztd = zt * inv_delta % r
+        ladder = [ztd]
+        acc = tox.t
+        for _ in range(1, len(pk.z)):
+            ladder.append(acc * ztd % r)
+            acc = acc * tox.t % r
+
+        lo = r1cs.n_public + 1
+        bac = [
+            (ats[i] * tox.kbeta + bts[i] * tox.kalpha + cts[i]) % r
+            for i in range(m)
+        ]
+        cdelta_priv = [x * inv_delta % r for x in bac[lo:]]
+
+        pk._device = self._device_pk_from_scalars(n, m, lo, ats, bts, cdelta_priv, ladder)
+
+        g1, g2 = ctx.bn.g1, ctx.bn.g2
+        pk.g1.alpha = g1.mul_scalar(g1.g, tox.kalpha)
+        pk.g1.beta = g1.mul_scalar(g1.g, tox.kbeta)
+        pk.g1.delta = g1.mul_scalar(g1.g, tox.kdelta)
+        pk.g2.beta = g2.mul_scalar(g2.g, tox.kbeta)
+        pk.g2.gamma = g2.mul_scalar(g2.g, tox.kgamma)
+        pk.g2.delta = g2.mul_scalar(g2.g, tox.kdelta)
+        vk.g1.alpha = pk.g1.alpha
+        vk.g2.beta = pk.g2.beta
+        vk.g2.gamma = pk.g2.gamma
+        vk.g2.delta = pk.g2.delta
+        vk.ic = self.fb_g1.batch_mul([x * inv_gamma % r for x in bac[:lo]])
+
+        dpk = pk._device
+        first = lambda pt, k: tree_map(lambda x: x[..., :k].contiguous(), pt)
+        pk.g1.at = self.g1b.unpack(first(dpk.at, m))
+        pk.g1.bacgamma = self.g1b.unpack(first(dpk.b1, m))
+        pk.g2.bacgamma = self.g2b.unpack(first(dpk.b2, m))
+        pk.bacdelta = [g1.zero()] * lo + self.g1b.unpack(first(dpk.cdelta, m - lo))
+        pk.powers_tau_delta = self.g1b.unpack(first(dpk.ptau, n)) + self.fb_g1.batch_mul(ladder[n:])
+        return setup
+
+    # ------------------------------------------------------------------
+    def _device_pk(self, pk: Pk, n: int, lo: int) -> DevicePk:
+        """Device key from a host Pk (packs + affine-normalises once, cached
+        on the Pk object)."""
+        if getattr(pk, "_device", None) is not None:
+            return pk._device
+        m = len(pk.g1.at)
+        m_pad = self._pad_for(m)
+        mp_pad = self._pad_for(m - lo)
+        n_pad = self._pad_for(n)
+        zero1, zero2 = self.ctx.bn.g1.zero(), self.ctx.bn.g2.zero()
+
+        def packa(bg, pts, lanes, zero):
+            arr = list(pts) + [zero] * (lanes - len(pts))
+            return bg.to_affine(bg.pack(arr))
+
+        pk._device = DevicePk(
+            n=n,
+            m=m,
+            lo=lo,
+            m_pad=m_pad,
+            mp_pad=mp_pad,
+            n_pad=n_pad,
+            at=packa(self.g1b, pk.g1.at, m_pad, zero1),
+            b1=packa(self.g1b, pk.g1.bacgamma, m_pad, zero1),
+            b2=packa(self.g2b, pk.g2.bacgamma, m_pad, zero2),
+            cdelta=packa(self.g1b, pk.bacdelta[lo:], mp_pad, zero1),
+            ptau=packa(self.g1b, pk.powers_tau_delta[:n], n_pad, zero1),
+        )
+        return pk._device
+
+    def _ntt_args(self, n: int):
+        """The device-resident NTT tables for domain n."""
+        ntt = self.ntt
+        return (
+            ntt.table(n, False),
+            ntt.table(n, True),
+            ntt.coset_powers(n, _COSET_G, False),
+            ntt.coset_powers(n, _COSET_G, True),
+        )
+
+    def _h_pipeline(self, n: int):
+        """H(x) pipeline: evaluation-form a, b, c (8, n) Montgomery + the
+        four NTT tables -> H coefficients (8, n) Montgomery, via the coset
+        trick (Z = g^n - 1 is a nonzero constant off the subgroup)."""
+        r = C.R
+        K, ntt = self.Kr, self.ntt
+        g = _COSET_G
+        zinv_l = K.pack([pow((pow(g, n, r) - 1) % r, -1, r)])
+        ninv_l = K.pack([pow(n, -1, r)])
+
+        def pipeline(a, b, c, t_fwd, t_inv, cs, cs_inv):
+            intt = lambda x: K.mul_const(ntt.transform(x, t_inv, True), ninv_l)
+            to_coset = lambda x: ntt.transform(K.mul(intt(x), cs), t_fwd, False)
+            ac, bc, cc = to_coset(a), to_coset(b), to_coset(c)
+            p = K.sub(K.mul(ac, bc), cc)
+            hc = K.mul_const(p, zinv_l)
+            return K.mul(intt(hc), cs_inv)
+
+        return pipeline
+
+    def _get_h_jit(self, n: int, n_pad: int):
+        """H(x) program: evaluation-form a, b, c -> canonical H-coefficient
+        limbs (the MSM digit source), padded to the ptau lane count.  The
+        name follows the JAX package; PyTorch runs it eagerly."""
+        h_pipe = self._h_pipeline(n)
+        Kr = self.Kr
+        pad = n_pad - n
+
+        def h_digits(a_e, b_e, c_e, *ntt_args):
+            h_plain = Kr.from_mont(h_pipe(a_e, b_e, c_e, *ntt_args))
+            if pad:
+                h_plain = torch.nn.functional.pad(h_plain, (0, pad))
+            return h_plain
+
+        return h_digits
+
+    # ------------------------------------------------------------------
+    def prove(self, r1cs: SparseR1CS, pk: Pk, rng=None) -> Proof:
+        """Groth16 prover: same assembly as groth16.generate_proofs
+        (groth16.go:225-279) with the NTT H(x) and device MSMs."""
+        ctx = self.ctx
+        r = C.R
+        g1, g2 = ctx.bn.g1, ctx.bn.g2
+        w = [x % r for x in r1cs.witness]
+        n = _next_pow2(r1cs.n_constraints)
+        lo = r1cs.n_public + 1
+        dpk = self._device_pk(pk, n, lo)
+
+        r_rand = ctx.rand_fr(rng)
+        s_rand = ctx.rand_fr(rng)
+
+        # host -> device: witness limbs + evaluation-form row combinations
+        w_limbs = scalars_to_limbs(w + [0] * (dpk.m_pad - len(w)), r, self.device)
+        wp_limbs = scalars_to_limbs(w[lo:] + [0] * (dpk.mp_pad - (len(w) - lo)), r, self.device)
+        a_e, b_e, c_e = r1cs.row_evals()
+        pad = n - len(a_e)
+        dev = lambda v: self.Kr.pack(list(v) + [0] * pad)
+
+        c_m = self.msm_g1.window_bits_for(dpk.m_pad)
+        c_p = self.msm_g1.window_bits_for(dpk.mp_pad)
+        c_h = self.msm_g1.window_bits_for(dpk.n_pad)
+        # ONE sort/compaction plan for the witness scalars, shared by the
+        # three same-scalar MSMs (at, b1 in G1 AND b2 in G2 — plans carry no
+        # group data)
+        plans_w = self.msm_g1.make_plans(w_limbs, c_m)
+
+        # G1 side, G2 side, H side, enqueued in order on one stream; the
+        # flags stay on the device until all five MSMs are in flight
+        s_at = self.msm_g1.window_sums_eager(dpk.at, w_limbs, c_m, plans_w)
+        s_b1 = self.msm_g1.window_sums_eager(dpk.b1, w_limbs, c_m, plans_w)
+        s_cd = self.msm_g1.window_sums_eager(dpk.cdelta, wp_limbs, c_p)
+        s_b2 = self.msm_g2.window_sums_eager(dpk.b2, w_limbs, c_m, plans_w)
+        h_digits = self._get_h_jit(n, dpk.n_pad)(
+            dev(a_e), dev(b_e), dev(c_e), *self._ntt_args(n)
+        )
+        s_h = self.msm_g1.window_sums_eager(dpk.ptau, h_digits, c_h)
+
+        # degeneracy-flag check: incomplete-formula MSMs re-run through the
+        # complete-engine twin if their flag fired (cryptographically never
+        # for honest keys; exact always)
+        def chk(eng, sf, pts, limbs, c, plans=None):
+            sums, bad = sf
+            if bool(bad):
+                eng.fallback_hits += 1
+                sums, _ = eng.fallback_engine().window_sums_eager(pts, limbs, c, plans)
+            return sums
+
+        s_at = chk(self.msm_g1, s_at, dpk.at, w_limbs, c_m, plans_w)
+        s_b1 = chk(self.msm_g1, s_b1, dpk.b1, w_limbs, c_m, plans_w)
+        s_cd = chk(self.msm_g1, s_cd, dpk.cdelta, wp_limbs, c_p)
+        s_h = chk(self.msm_g1, s_h, dpk.ptau, h_digits, c_h)
+        sums_b2 = chk(self.msm_g2, s_b2, dpk.b2, w_limbs, c_m, plans_w)
+
+        comb1 = lambda sums, c: combine_window_sums(g1, self.g1b.unpack(sums), c)
+        pi_a = comb1(s_at, c_m)
+        pi_b_g1 = comb1(s_b1, c_m)
+        pi_b = combine_window_sums(g2, self.g2b.unpack(sums_b2), c_m)
+        pi_c = comb1(s_cd, c_p)
+        pi_h = comb1(s_h, c_h)
+
+        pi_a = g1.add(pi_a, pk.g1.alpha)
+        pi_a = g1.add(pi_a, g1.mul_scalar(pk.g1.delta, r_rand))
+        pi_b_g1 = g1.add(pi_b_g1, pk.g1.beta)
+        pi_b = g2.add(pi_b, pk.g2.beta)
+        pi_b_g1 = g1.add(pi_b_g1, g1.mul_scalar(pk.g1.delta, s_rand))
+        pi_b = g2.add(pi_b, g2.mul_scalar(pk.g2.delta, s_rand))
+
+        pi_c = g1.add(pi_c, pi_h)
+        pi_c = g1.add(pi_c, g1.mul_scalar(pi_a, s_rand))
+        pi_c = g1.add(pi_c, g1.mul_scalar(pi_b_g1, r_rand))
+        neg_rs = (-(r_rand * s_rand)) % r
+        pi_c = g1.add(pi_c, g1.mul_scalar(pk.g1.delta, neg_rs))
+        return Proof(pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)

@@ -1,0 +1,513 @@
+"""Pippenger multi-scalar multiplication.
+
+Mirrors ``go_snark_study_tpu/ops/msm.py`` (``MSMEngine``): signed window
+digits, one device-resident sort/compaction plan per scalar vector (shared
+by the prover's three same-witness MSMs, G2 included), tiled bucket
+accumulation with incomplete adds and a degeneracy flag, a segmented
+Hillis-Steele merge, and the parallel bucket reduction; the W window sums
+are combined on the host in exact arithmetic.
+
+What differs from the JAX package:
+
+  * No compile families.  The JAX engine cuts large MSMs into 2^17/2^14
+    lane chunks on the TPU to bound its compile count; the port takes the
+    unchunked path the JAX package takes on the CPU, so both pick the same
+    window width and the same tiling for a given point count.
+  * ``jnp.argsort`` is stable; ``torch.sort(..., stable=True)`` keeps the
+    same order, so buckets accumulate in the same order and the window sums
+    are the same Jacobian coordinates.
+  * Every whole-point add is K1 (:mod:`.point_add`); the flags stay on the
+    device until the caller reads them once.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from .curve_ops import jacobian_double, tree_leaves, tree_map
+from .limbs import LIMBS, ints_to_limbs_np, to_u64
+
+__all__ = [
+    "MSMEngine",
+    "scalars_to_limbs",
+    "digits_from_limbs",
+    "signed_digits_from_limbs",
+    "num_windows",
+    "bucket_count",
+    "choose_window_bits",
+    "combine_window_sums",
+    "WINDOW_BITS",
+    "NUM_WINDOWS",
+]
+
+# 8-bit windows: the fixed-base table radix (ops/fixed_base)
+WINDOW_BITS = 8
+NUM_WINDOWS = 32
+
+SCALAR_BITS = 254  # BN128 r bit length
+_TILE_LANES = 2048
+# memory budget for one window group's partial sums, in the JAX layout's
+# bytes (so that windows are grouped as the JAX engine groups them)
+_GROUP_BYTES = 3 << 30
+
+
+def scalars_to_limbs(scalars: Sequence[int], modulus: int, device) -> torch.Tensor:
+    """Scalars -> (8, N) int32 32-bit limbs (plain, not Montgomery): the
+    field layout, so that a Montgomery exit (``from_mont``) on the device
+    yields MSM digits directly."""
+    return torch.from_numpy(ints_to_limbs_np([s % modulus for s in scalars])).to(device)
+
+
+
+def num_windows(c: int) -> int:
+    return -(-SCALAR_BITS // c)
+
+
+def bucket_count(c: int) -> tuple:
+    """(m_buckets, d_chunk) for signed windows of width c: magnitudes span
+    0..2^(c-1), padded up so the reduction's power-of-two chunk width
+    divides the bucket count (padding slots hold identities)."""
+    m0 = (1 << (c - 1)) + 1
+    dc = 64 if m0 > 1024 else 16 if m0 > 64 else 8 if m0 > 8 else 4
+    return -(-m0 // dc) * dc, dc
+
+
+def choose_window_bits(n: int) -> int:
+    """The JAX package's window width table (its break-evens are flat)."""
+    if n >= 1 << 19:
+        return 13
+    if n >= 1 << 17:
+        return 12
+    if n >= 1 << 15:
+        return 11
+    if n >= 1 << 13:
+        return 10
+    return 8
+
+
+def digits_from_limbs(limbs: torch.Tensor, c: int) -> torch.Tensor:
+    """(8, N) 32-bit limbs -> (W, N) int32 UNSIGNED radix-2^c digits.
+    Window w covers scalar bits [w*c, (w+1)*c), at most two limbs."""
+    u = to_u64(limbs)
+    mask = (1 << c) - 1
+    rows = []
+    for w in range(num_windows(c)):
+        lo_bit = w * c
+        b0, sh = lo_bit // 32, lo_bit % 32
+        d = u[b0] >> sh
+        if sh + c > 32 and b0 + 1 < LIMBS:
+            d = d | (u[b0 + 1] << (32 - sh))
+        rows.append((d & mask).to(torch.int32))
+    return torch.stack(rows)
+
+
+def signed_digits_from_limbs(limbs: torch.Tensor, c: int) -> torch.Tensor:
+    """(8, N) 32-bit limbs -> (W, N) int32 SIGNED radix-2^c digits in
+    the balanced range [-(2^(c-1)-1), 2^(c-1)], via carry recoding."""
+    assert num_windows(c) * c >= SCALAR_BITS + 1, (
+        f"window width {c} leaves no carry headroom above {SCALAR_BITS} bits"
+    )
+    raw = digits_from_limbs(limbs, c)
+    half = 1 << (c - 1)
+    full = 1 << c
+    rows = []
+    carry = torch.zeros_like(raw[0])
+    for w in range(raw.shape[0]):
+        d = raw[w] + carry
+        flip = d > half
+        rows.append(torch.where(flip, d - full, d))
+        carry = flip.to(torch.int32)
+    return torch.stack(rows)
+
+
+def combine_window_sums(host_group, window_pts, c: int):
+    """Exact host combination: Σ_w 2^(c·w) · S_w, MSB window first."""
+    total = host_group.zero()
+    for wp in reversed(window_pts):
+        for _ in range(c):
+            total = host_group.double(total)
+        total = host_group.add(total, wp)
+    return total
+
+
+class MSMEngine:
+    """MSM over one group (G1Batch or G2Batch) with its host group for the
+    final exact combination step.
+
+    ``tile_threshold``: point counts below this use the simple (sort + one
+    log-scan) path; above it the tiled pipeline.  ``tile_lanes``: lanes per
+    serial step of the tiled path (tests lower it to reach that path at a
+    small size).  ``complete``: use the complete group law instead of the
+    incomplete+flag fast path — the fallback target.
+    """
+
+    def __init__(
+        self,
+        batch_group,
+        host_group,
+        scalar_modulus: int,
+        window_bits: int | None = None,
+        tile_threshold: int = 8192,
+        tile_lanes: int = _TILE_LANES,
+        complete: bool = False,
+    ):
+        self.bg = batch_group
+        self.host_group = host_group
+        self.r = scalar_modulus
+        self.window_bits = window_bits
+        self.tile_threshold = tile_threshold
+        self.tile_lanes = tile_lanes
+        self.complete = complete
+        self._fallback = None
+        self.fallback_hits = 0  # degeneracy-flag re-runs (observability)
+
+    @property
+    def device(self):
+        return self.bg.K.device
+
+    # ------------------------------------------------------------------
+    # parameter selection (the JAX engine's unchunked path)
+    # ------------------------------------------------------------------
+    def window_bits_for(self, n: int) -> int:
+        return self.window_bits or choose_window_bits(n)
+
+    def pad_quantum(self, n: int) -> int:
+        if n >= self.tile_threshold:
+            return self.tile_lanes
+        return 128
+
+    def _coord_bytes(self) -> int:
+        # bytes per point-lane in the JAX layout: 3 coords x arity x 32 x 4 B
+        # (kept so that the window grouping matches the JAX engine's)
+        return 3 * self.bg._arity * 32 * 4
+
+    def _group_size(self, n: int, w: int) -> int:
+        by_mem = max(1, _GROUP_BYTES // (n * self._coord_bytes()))
+        return max(1, min(w, by_mem))
+
+    def _tile_split(self, n: int):
+        """(K serial steps, m lanes per window) for an n-lane stream."""
+        k = max(2, n // self.tile_lanes)
+        return k, n // k
+
+    def _false(self):
+        return torch.zeros((), dtype=torch.bool, device=self.device)
+
+    def _jadd_f(self, a, b):
+        if self.complete:
+            return self.bg.jadd(a, b), self._false()
+        pt, bad = self.bg.jadd_flagged(a, b)
+        return pt, bad.any()
+
+    # ------------------------------------------------------------------
+    # device pipeline
+    # ------------------------------------------------------------------
+    def _plan_impl(self, dig_g: torch.Tensor, c: int) -> dict:
+        """Sort/compaction plan for one window group of SIGNED digits
+        (wg, N): everything data-dependent that does not involve points."""
+        wg, n = dig_g.shape
+        k, m = self._tile_split(n)
+        m_buckets, _ = bucket_count(c)
+        mag = dig_g.abs()
+        smag, order = torch.sort(mag, dim=1, stable=True)
+        sneg = torch.gather(dig_g, 1, order) < 0
+        # sorted position t*K + j  ->  scan step j, lane (w, t)
+        ord3 = order.reshape(wg, m, k).permute(2, 0, 1).contiguous()  # (K, Wg, m)
+        mag3 = smag.reshape(wg, m, k).permute(2, 0, 1).contiguous()
+        neg3 = sneg.reshape(wg, m, k).permute(2, 0, 1).contiguous()
+        # a partial emitted at step j is FINAL iff step j+1 (same tile)
+        # opens a new run, or j == K-1
+        nxt = torch.cat([mag3[1:], torch.full((1, wg, m), -8, dtype=mag3.dtype, device=mag3.device)])
+        closed = nxt != mag3  # (K, Wg, m)
+        flat_closed = closed.permute(1, 2, 0).reshape(wg, n)
+        p_cap = min(n, m_buckets + m)
+        p_cap += (-p_cap) % 128
+        pos = torch.cumsum(flat_closed.to(torch.int32), dim=1, dtype=torch.int32) - 1
+        idx_flat = torch.where(flat_closed, pos, torch.full_like(pos, p_cap))
+        idx3 = idx_flat.reshape(wg, m, k).permute(2, 0, 1).long().contiguous()
+        widx = torch.arange(wg, device=dig_g.device).view(1, wg, 1).expand_as(idx3)
+        comp_dig = torch.full((wg, p_cap + 1), -3, dtype=torch.int32, device=dig_g.device)
+        comp_dig[widx, idx3] = mag3
+        return {
+            "ord3": ord3,
+            "mag3": mag3,
+            "neg3": neg3,
+            "idx3": idx3,
+            "comp_dig": comp_dig[:, :p_cap].contiguous(),
+        }
+
+    def _apply_impl(self, points, plan: dict, c: int):
+        """Apply a group plan to an affine point set: tiled accumulation
+        (K steps of wide mixed adds with sign folding), compaction, and the
+        segmented merge scan.  Returns (buckets, bad) with bucket leaves
+        (8, Wg, m_buckets)."""
+        ord3, mag3, neg3 = plan["ord3"], plan["mag3"], plan["neg3"]
+        k, wg, m = ord3.shape
+        m_buckets, _ = bucket_count(c)
+        acc = self.bg.zeros(wg * m)
+        prev_mag = torch.full((wg * m,), -9, dtype=torch.int32, device=self.device)
+        bad = self._false()
+        accs = []
+        for j in range(k):
+            fid = ord3[j].reshape(-1)
+            pt = tree_map(lambda c_: c_.index_select(1, fid), points)
+            pt = self.bg.neg_y_where(pt, neg3[j].reshape(-1))
+            mflat = mag3[j].reshape(-1)
+            boundary = mflat != prev_mag
+            if self.complete:
+                added = self.bg.madd(acc, pt)
+            else:
+                added, badm = self.bg.madd_flagged(acc, pt)
+                # only flags whose result is consumed count: run interiors
+                # of live (nonzero-magnitude) buckets
+                bad = bad | (badm & ~boundary & (mflat > 0)).any()
+            acc = tree_map(
+                lambda p_, a_: torch.where(boundary.unsqueeze(0), p_, a_), pt, added
+            )
+            prev_mag = mflat
+            accs.append(acc)
+
+        idx3, comp_dig = plan["idx3"], plan["comp_dig"]
+        p_cap = comp_dig.shape[1]
+        widx = torch.arange(wg, device=self.device).view(1, wg, 1).expand_as(idx3)
+
+        def compact(*cs):
+            src = torch.stack(cs, 1).reshape(LIMBS, k, wg, m)  # (8, K, Wg, m)
+            out = torch.zeros((LIMBS, wg, p_cap + 1), dtype=src.dtype, device=src.device)
+            out[:, widx, idx3] = src
+            return out[:, :, :p_cap].contiguous()
+
+        comp_pts = tree_map(compact, *accs)
+        scanned, bad2 = self._seg_scan_runs(comp_pts, comp_dig)
+        return self._runs_to_buckets(scanned, comp_dig, m_buckets), bad | bad2
+
+    def _seg_scan_runs(self, pts, sdig):
+        """Segmented Hillis-Steele inclusive scan over contiguous runs of
+        equal ``sdig`` along the LAST axis.  Negative digits are sentinels.
+        Returns (scanned, bad)."""
+        P = sdig.shape[-1]
+        lane = torch.arange(P, device=sdig.device).expand_as(sdig)
+        steps = max(1, (P - 1).bit_length())
+        live = sdig > 0  # bucket-0 / sentinel results are discarded
+        acc, bad = pts, self._false()
+        for s in range(steps):
+            d = 1 << s
+            rolled_dig = torch.roll(sdig, d, dims=-1)
+            same = torch.logical_and(lane >= d, rolled_dig == sdig)
+            prev = tree_map(lambda c_: torch.roll(c_, d, dims=-1), acc)
+            if self.complete:
+                summed = self.bg.jadd(acc, prev)
+            else:
+                summed, badm = self.bg.jadd_flagged(acc, prev)
+                bad = bad | (badm & same & live).any()
+            acc = tree_map(
+                lambda s_, a_: torch.where(same.unsqueeze(0), s_, a_), summed, acc
+            )
+        return acc, bad
+
+    @staticmethod
+    def _runs_to_buckets(acc, sdig, m_buckets: int):
+        """Scatter each run's tail element into its bucket slot.
+        acc leaves (8, Wg, P) [or (8, P)], sdig (Wg, P) [or (P,)]."""
+        nxt = torch.cat(
+            [sdig[..., 1:], torch.full(sdig.shape[:-1] + (1,), -2, dtype=sdig.dtype, device=sdig.device)],
+            dim=-1,
+        )
+        is_last = torch.logical_and(sdig != nxt, sdig >= 0)
+        slot = torch.where(is_last, sdig, torch.full_like(sdig, m_buckets)).long()
+        if sdig.dim() == 1:
+
+            def scatter(c_):
+                out = torch.zeros((c_.shape[0], m_buckets + 1), dtype=c_.dtype, device=c_.device)
+                out[:, slot] = c_
+                return out[:, :m_buckets].contiguous()
+
+            return tree_map(scatter, acc)
+        wg = sdig.shape[0]
+        widx = torch.arange(wg, device=sdig.device).view(wg, 1).expand_as(slot)
+
+        def scatter2(c_):
+            out = torch.zeros((c_.shape[0], wg, m_buckets + 1), dtype=c_.dtype, device=c_.device)
+            out[:, widx, slot] = c_
+            return out[:, :, :m_buckets].contiguous()
+
+        return tree_map(scatter2, acc)
+
+    def _plan_small_impl(self, digits: torch.Tensor) -> dict:
+        """Small-N plan: one sort over the raw (signed) digit matrix."""
+        mag = digits.abs()
+        smag, order = torch.sort(mag, dim=1, stable=True)
+        sneg = torch.gather(digits, 1, order) < 0
+        return {"order": order, "smag": smag, "sneg": sneg}
+
+    def _apply_small_impl(self, points, plan: dict, c: int):
+        """Small-N path: all windows in lanes, one gather + one segmented
+        scan over the raw sorted stream, reduction included.  Returns
+        (window_sums, bad)."""
+        m_buckets, _ = bucket_count(c)
+        order, smag = plan["order"], plan["smag"]
+        w, n = order.shape
+        flat = order.reshape(-1)
+        spts = tree_map(
+            lambda c_: c_.index_select(1, flat).reshape(LIMBS, w, n), points
+        )
+        spts = self.bg.neg_y_where(spts, plan["sneg"])
+        scanned, bad = self._seg_scan_runs(spts, smag)
+        buckets = self._runs_to_buckets(scanned, smag, m_buckets)
+        sums, bad2 = self._reduce_buckets(buckets, c)
+        return sums, bad | bad2
+
+    def _reduce_buckets(self, buckets, c: int):
+        """Σ_b b·B_b per window, parallel: chunk b = q·D + j, run the
+        double-running-sum over j only (D steps, W·Q-wide lanes), then
+        combine the Q chunk aggregates with a second Q-step scan:
+        Σ_b b·B_b = D·Σ_q q·S_q + Σ_q T_q.  buckets leaves (8, W, M);
+        returns (sums, bad) with sum leaves (8, W)."""
+        F = self.bg.F
+        m_buckets, d_chunk = bucket_count(c)
+        w = tree_leaves(buckets)[0].shape[1]
+        q_chunk = m_buckets // d_chunk
+
+        # (8, W, M) -> (D, 8, W, Q) with j (minor bucket index) leading,
+        # j = D-1 first
+        def to_scan(c_):
+            b4 = c_.reshape(LIMBS, w, q_chunk, d_chunk).permute(3, 0, 1, 2)
+            return torch.flip(b4, (0,))
+
+        b4 = tree_map(to_scan, buckets)
+        zero = tree_map(lambda c_: torch.zeros_like(c_[0]), b4)  # (8, W, Q)
+        running, t_sum, bad = zero, zero, self._false()
+        for j in range(d_chunk - 1):  # j = D-1 .. 1
+            bj = tree_map(lambda c_: c_[j].contiguous(), b4)
+            running, b1 = self._jadd_f(running, bj)
+            t_sum, b2 = self._jadd_f(t_sum, running)
+            bad = bad | b1 | b2
+        b0 = tree_map(lambda c_: c_[d_chunk - 1].contiguous(), b4)  # j = 0
+        s_sum, b_ = self._jadd_f(running, b0)  # S_q, leaves (8, W, Q)
+        bad = bad | b_
+
+        # combine chunks: Σ_q q·S_q (double-running over q) and Σ_q T_q,
+        # both in ONE Q-step scan at W lanes, q descending
+        def chunk_scan(c_):
+            return torch.flip(c_.permute(2, 0, 1), (0,))  # (Q, 8, W)
+
+        sq = tree_map(chunk_scan, s_sum)
+        tq = tree_map(chunk_scan, t_sum)
+        zero_w = tree_map(lambda c_: torch.zeros_like(c_[0]), sq)
+        run_s, inner, tot_t = zero_w, zero_w, zero_w
+        for q in range(q_chunk - 1):
+            s_j = tree_map(lambda c_: c_[q].contiguous(), sq)
+            t_j = tree_map(lambda c_: c_[q].contiguous(), tq)
+            run_s, b1 = self._jadd_f(run_s, s_j)
+            inner, b2 = self._jadd_f(inner, run_s)
+            tot_t, b3 = self._jadd_f(tot_t, t_j)
+            bad = bad | b1 | b2 | b3
+        # q = 0 contributes only to Σ T_q
+        tot_t, b_ = self._jadd_f(
+            tot_t, tree_map(lambda c_: c_[q_chunk - 1].contiguous(), tq)
+        )
+        bad = bad | b_
+        for _ in range(d_chunk.bit_length() - 1):  # × D
+            inner = jacobian_double(F, inner)
+        out, b_ = self._jadd_f(inner, tot_t)
+        return out, bad | b_
+
+    # ------------------------------------------------------------------
+    # eager pipeline: plans, then window sums
+    # ------------------------------------------------------------------
+    def make_plans(self, limbs, c: int, n_lanes: Optional[int] = None) -> dict:
+        """Build the device-resident sort/compaction plans for a scalar
+        vector (8, N).  The result can be passed to ``window_sums_eager``
+        of ANY engine (plans contain no point or group data), so the
+        prover's three same-witness MSMs — G2 included — pay the sort once."""
+        n = int(limbs.shape[1]) if n_lanes is None else n_lanes
+        assert limbs.shape[1] == n, (limbs.shape, n)
+        w = num_windows(c)
+        digits = signed_digits_from_limbs(limbs, c)
+        if n < self.tile_threshold:
+            return {"mode": "small", "c": c, "n": n, "plan": self._plan_small_impl(digits)}
+        wg = self._group_size(n, w)
+        wpad = (-w) % wg
+        if wpad:
+            digits = torch.cat([digits, torch.zeros((wpad, n), dtype=digits.dtype, device=digits.device)])
+        plans = [self._plan_impl(digits[g0 : g0 + wg], c) for g0 in range(0, w + wpad, wg)]
+        return {"mode": "tiled", "c": c, "n": n, "wg": wg, "wpad": wpad, "plans": plans}
+
+    def window_sums_eager(self, aff_points, limbs, c: int, plans=None):
+        """Affine point pytree (N lanes) + (8, N) scalar limbs ->
+        (window sums, bad flag), sum leaves (8, W).  ``plans`` (from
+        :meth:`make_plans`, possibly of another engine) skips the digit and
+        sort work."""
+        n = tree_leaves(aff_points)[0].shape[-1]
+        if plans is None:
+            plans = self.make_plans(limbs, c, n)
+        else:
+            assert plans["c"] == c and plans["n"] == n, (plans["c"], plans["n"], c, n)
+        if plans["mode"] == "small":
+            return self._apply_small_impl(aff_points, plans["plan"], c)
+        parts, bad = [], self._false()
+        for plan in plans["plans"]:
+            b_g, f_g = self._apply_impl(aff_points, plan, c)
+            parts.append(b_g)
+            bad = bad | f_g
+        buckets = (
+            parts[0]
+            if len(parts) == 1
+            else tree_map(lambda *xs: torch.cat(xs, dim=1), *parts)
+        )
+        sums, f_r = self._reduce_buckets(buckets, c)
+        if plans["wpad"]:
+            sums = tree_map(lambda c_: c_[:, : num_windows(c)].contiguous(), sums)
+        return sums, bad | f_r
+
+    # ------------------------------------------------------------------
+    def fallback_engine(self) -> "MSMEngine":
+        """The complete-formula twin used when a degeneracy flag fires."""
+        if self.complete:
+            return self
+        if self._fallback is None:
+            self._fallback = MSMEngine(
+                self.bg,
+                self.host_group,
+                self.r,
+                window_bits=self.window_bits,
+                tile_threshold=self.tile_threshold,
+                tile_lanes=self.tile_lanes,
+                complete=True,
+            )
+        return self._fallback
+
+    def window_sums_checked(self, aff_points, limbs, c: int, plans=None):
+        """window_sums_eager + host flag check + automatic complete-formula
+        re-run.  Returns window sums only (exactly correct)."""
+        sums, bad = self.window_sums_eager(aff_points, limbs, c, plans)
+        if not self.complete and bool(bad):
+            self.fallback_hits += 1
+            sums, _ = self.fallback_engine().window_sums_eager(aff_points, limbs, c, plans)
+        return sums
+
+    def msm_device(self, dev_points, limbs):
+        """Jacobian point pytree + scalar limbs -> one host Jacobian point:
+        affine-normalise, window sums (with the degeneracy fallback), exact
+        host combination."""
+        n = tree_leaves(dev_points)[0].shape[-1]
+        c = self.window_bits_for(n)
+        aff = self.bg.to_affine(dev_points)
+        sums = self.window_sums_checked(aff, limbs, c)
+        return combine_window_sums(self.host_group, self.bg.unpack(sums), c)
+
+    def msm(self, host_points, host_scalars: Sequence[int]):
+        """Σ sᵢ·Pᵢ.  host_points: reference-style Jacobian points; returns
+        one host Jacobian point."""
+        assert len(host_points) == len(host_scalars)
+        n = len(host_points)
+        if n == 0:
+            return self.host_group.zero()
+        pad = (-n) % self.pad_quantum(n)
+        pts = list(host_points) + [self.host_group.zero()] * pad
+        scs = [s % self.r for s in host_scalars] + [0] * pad
+        dev_pts = self.bg.pack(pts)
+        limbs = scalars_to_limbs(scs, self.r, self.device)
+        return self.msm_device(dev_pts, limbs)

@@ -1,0 +1,90 @@
+"""The port on the card: each CUDA kernel against its plain PyTorch version,
+bit for bit, and a seeded setup and proof against the JAX package's record.
+
+These tests need a CUDA device and skip without one.  They import neither
+``jax`` nor the JAX package, so they run where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import random
+
+import pytest
+import torch
+
+from go_snark_study_tpu_torch.bn128 import constants as C
+from go_snark_study_tpu_torch.ops import mont_mul as mm
+from go_snark_study_tpu_torch.ops import ntt_kernels as nk
+from go_snark_study_tpu_torch.ops import point_add as pa
+from go_snark_study_tpu_torch.ops.limbs import FieldKernels
+from go_snark_study_tpu_torch.ops.ntt import NTTEngine
+
+from test_torch_prover import CIRCUIT_SEED, N_CONSTRAINTS, RNG_SEED, g1_from, g2_from, load_golden
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_on_card(cuda_device):
+    """Every kernel against its plain version, on the card, bit for bit."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(7)
+
+    def rand(n, p):
+        x = torch.randint(0, 2**32, (8, n), generator=gen, device=cuda_device, dtype=torch.int64)
+        x[7] %= p >> 224
+        return x.to(torch.int32)
+
+    for p in (C.Q, C.R):
+        a, b = rand(4096, p), rand(4096, p)
+        assert torch.equal(mm.mont_mul(a, b, p), mm.mont_mul_plain(a, b, p))
+    for arity in (1, 2):
+        pt = lambda: tuple(rand(1000, C.Q) for _ in range(3)) if arity == 1 else \
+            tuple((rand(1000, C.Q), rand(1000, C.Q)) for _ in range(3))
+        p1, p2 = pt(), pt()
+        for form in pa.FORMS:
+            got, want = pa.point_add(form, arity, p1, p2), pa.point_add_plain(form, arity, p1, p2)
+            if form.endswith("_f"):
+                (got, gb), (want, wb) = got, want
+                assert torch.equal(gb, wb)
+            assert all(torch.equal(x, y) for x, y in zip(pa._leaves(got, arity), pa._leaves(want, arity)))
+    ntt = NTTEngine(FieldKernels(C.R, cuda_device))
+    for g in (2, 4, 8, 16):
+        x = rand(g * 300, C.R).reshape(8, g, 300).contiguous()
+        tw = ntt.small_table(g, False)
+        assert torch.equal(nk.small_ntt(x, tw), nk.small_ntt_plain(x, tw))
+    e, o, t = rand(777, C.R), rand(777, C.R), rand(777, C.R)
+    assert all(torch.equal(x, y) for x, y in zip(nk.butterfly(e, o, t), nk.butterfly_plain(e, o, t)))
+
+
+@pytest.mark.gpu
+def test_card_proof_matches_jax_record(cuda_device):
+    """Setup and prove on the card (device=None), with the seeds of the JAX
+    record: the same vk and proof as JAX's FastGroth16, and it verifies."""
+    from go_snark_study_tpu_torch.bn128 import default_bn128
+    from go_snark_study_tpu_torch.models.groth16 import verify_proof
+    from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
+    from go_snark_study_tpu_torch.synthetic import mul_chain_r1cs
+
+    meta, _ = load_golden()
+    r1cs = mul_chain_r1cs(N_CONSTRAINTS, seed=CIRCUIT_SEED)
+    rng = random.Random(RNG_SEED)
+    fast = FastGroth16()
+    assert fast.device.type == "cuda"
+    setup = fast.setup(r1cs, rng=rng)
+    proof = fast.prove(r1cs, setup.pk, rng=rng)
+
+    bn = default_bn128()
+    assert all(bn.g1.equal(got, g1_from(want)) for got, want in zip(setup.vk.ic, meta["vk"]["ic"]))
+    want = meta["proof"]
+    assert bn.g1.equal(proof.pi_a, g1_from(want["pi_a"]))
+    assert bn.g2.equal(proof.pi_b, g2_from(want["pi_b"]))
+    assert bn.g1.equal(proof.pi_c, g1_from(want["pi_c"]))
+    publics = r1cs.witness[1 : r1cs.n_public + 1]
+    assert verify_proof(setup.vk, proof, publics)
+    assert not verify_proof(setup.vk, proof, [publics[0] + 1])

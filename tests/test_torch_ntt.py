@@ -1,0 +1,86 @@
+"""The port's NTT kernels (plain versions of K3 and K4) and ``NTTEngine``
+held against the JAX package's ``NTTEngine``, bit for bit, at <= 2^10
+lanes; the port's four-step path against its own radix-2 path at 2^14.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from go_snark_study_tpu.ops.fields import fr_kernels as jax_fr_kernels
+from go_snark_study_tpu.ops.ntt import NTTEngine as JaxNTTEngine
+from go_snark_study_tpu_torch.bn128 import constants as C
+from go_snark_study_tpu_torch.interop import jax_to_port, port_to_jax
+from go_snark_study_tpu_torch.ops import ntt_kernels as nk
+from go_snark_study_tpu_torch.ops.limbs import FieldKernels
+from go_snark_study_tpu_torch.ops.ntt import NTTEngine
+
+# the tier-1 run gives each of its workers a share of the cores; torch's
+# own thread pool on top of that oversubscribes them
+torch.set_num_threads(1)
+
+
+def _rand_fr(seed, n):
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint64)
+    return [sum(int(w) << (32 * i) for i, w in enumerate(row)) % C.R for row in words]
+
+
+@pytest.fixture(scope="module")
+def engines():
+    return JaxNTTEngine(jax_fr_kernels()), NTTEngine(FieldKernels(C.R, "cpu"))
+
+
+@pytest.mark.parametrize("g", [2, 4, 16])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_plain_small_ntt_matches_jax_col_transform(engines, g, inverse):
+    jntt, ntt = engines
+    b_lanes = 64
+    vals = _rand_fr(g, g * b_lanes)
+    x = ntt.K.pack(vals).reshape(8, g, b_lanes)
+    want = jax.jit(lambda v: jntt._col_transform(v, g, inverse))(
+        jax.numpy.asarray(port_to_jax(x))
+    )
+    got = nk.small_ntt(x.contiguous(), ntt.small_table(g, inverse))
+    np.testing.assert_array_equal(port_to_jax(got), np.asarray(want))
+
+
+def test_plain_butterfly_matches_jax(engines):
+    jntt, ntt = engines
+    e, o, t = (ntt.K.pack(_rand_fr(s, 512)) for s in (1, 2, 3))
+    jlo, jhi = jax.jit(jntt._butterfly)(*(jax.numpy.asarray(port_to_jax(v)) for v in (e, o, t)))
+    lo, hi = nk.butterfly(e, o, t)
+    np.testing.assert_array_equal(port_to_jax(lo), np.asarray(jlo))
+    np.testing.assert_array_equal(port_to_jax(hi), np.asarray(jhi))
+
+
+def test_radix2_transform_matches_jax_at_2_10(engines):
+    jntt, ntt = engines
+    vals = _rand_fr(4, 1 << 10)
+    jx = jntt.K.pack(vals)
+    x = torch.from_numpy(jax_to_port(np.asarray(jx)))
+    fwd = ntt.forward(x)
+    np.testing.assert_array_equal(port_to_jax(fwd), np.asarray(jntt.forward(jx)))
+    inv = ntt.inverse(x)
+    np.testing.assert_array_equal(port_to_jax(inv), np.asarray(jntt.inverse(jx)))
+    assert torch.equal(ntt.inverse(fwd), x)
+
+
+def test_fourstep_matches_radix2_at_2_14(engines):
+    _, ntt = engines
+    n = 1 << 14
+    x = ntt.K.pack(_rand_fr(5, n))
+    for inverse in (False, True):
+        four = ntt._transform_fourstep(x, ntt.table(n, inverse), inverse)
+        radix2 = ntt._transform(x, ntt.master(n, inverse))
+        assert torch.equal(four, radix2), inverse
+    assert torch.equal(ntt.inverse(ntt.forward(x)), x)
+
+
+def test_coset_powers_match_host():
+    K = FieldKernels(C.R, "cpu")
+    ntt = NTTEngine(K)
+    n, g = 64, 5
+    assert K.unpack(ntt.coset_powers(n, g, False)) == [pow(g, i, C.R) for i in range(n)]
+    assert K.unpack(ntt.coset_powers(n, g, True)) == [pow(g, -i, C.R) for i in range(n)]
