@@ -45,6 +45,21 @@ K1_LANES = 1 << 14  # K1: every instance, with edge-case lanes
 APPLY_LANES = 24 * 2048  # K1: MSM apply step at 2^16 (24 windows x 2048)
 K3_COLS = 4096  # K3: g = 16 leaf of a 2^16 four-step transform
 K4_LANES = 1 << 11  # K4: one radix-2 stage at 2^12
+# K1 call sites of the 2^16 proof (c = 11: 24 windows, m = 2048, K = 33,
+# p_cap = 3200, 1088 buckets = Q 17 x D 64): (site, form, group, lanes,
+# launches per prove over the five MSMs; fixed-base runs in setup only)
+K1_SITES = (
+    ("apply", "madd_f", 1, APPLY_LANES, 131),
+    ("apply", "madd_f", 2, APPLY_LANES, 33),
+    ("seg-scan", "jadd_f", 1, 24 * 3200, 48),
+    ("seg-scan", "jadd_f", 2, 24 * 3200, 12),
+    ("reduce-1", "jadd_f", 1, 24 * 17, 508),
+    ("reduce-1", "jadd_f", 2, 24 * 17, 127),
+    ("reduce-2", "jadd_f", 1, 24, 200),
+    ("reduce-2", "jadd_f", 2, 24, 50),
+    ("fixed-base", "jadd", 1, 67584, 0),
+    ("fixed-base", "jadd", 2, 67584, 0),
+)
 
 
 def card_line() -> str:
@@ -83,6 +98,35 @@ def cuda_ms(torch, fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_ms(torch, fn, reps: int, prefixes, warm: int = 2):
+    """Device time of the kernels whose names start with one of ``prefixes``,
+    read from torch.profiler device events over ``reps`` calls of ``fn``:
+    (ms per launch, launches per call).  The wrapper's host work (checks,
+    allocation, ctypes) is not in it, unlike :func:`cuda_ms`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU and e.key.startswith(tuple(prefixes)):
+            total += _dev_us(e)
+            count += e.count
+    if count == 0:
+        raise RuntimeError(f"no device events for {prefixes}")
+    return total / 1e3 / count, count / reps
+
+
 def max_abs_err(torch, got, want) -> int:
     got = [got] if isinstance(got, torch.Tensor) else list(got)
     want = [want] if isinstance(want, torch.Tensor) else list(want)
@@ -99,6 +143,31 @@ def rand_fq(torch, gen, n: int, top: int):
     return x.to(torch.int32)
 
 
+def timed(torch, fn, plain, reps: int, prefixes, plain_reps: int = 2) -> dict:
+    """Device ms per launch (profiler), the wrapper loop's ms per call (CUDA
+    events around Python calls: host issue cost included) and the plain
+    version's ms per call."""
+    dev, per_call = device_ms(torch, fn, reps, prefixes)
+    return dict(ms=dev, device_ms=dev, launches_per_call=per_call,
+                wrapper_ms=cuda_ms(torch, fn, reps),
+                plain_ms=cuda_ms(torch, plain, plain_reps, warm=1) if plain else None)
+
+
+def say(tag: str, what: str, t: dict, card: str):
+    plain = f", plain {t['plain_ms']:.3f} ms" if t.get("plain_ms") is not None else ""
+    print(f"[kernels] {tag} {what}: match, device {t['ms']:.5f} ms/launch "
+          f"(x{t['launches_per_call']:g} per call), wrapper {t['wrapper_ms']:.4f} ms{plain}  ({card})")
+
+
+def rand_point(torch, gen, n: int, arity: int, top: int, affine_one=None):
+    comp = lambda: rand_fq(torch, gen, n, top)
+    coord = (lambda: comp()) if arity == 1 else (lambda: (comp(), comp()))
+    x, y, z = coord(), coord(), coord()
+    if affine_one is not None:  # affine operand: z = 1 (Montgomery)
+        z = affine_one if arity == 1 else (affine_one, torch.zeros_like(affine_one))
+    return (x, y, z)
+
+
 def check_kernels(torch, clock_hz, rows, card):
     from go_snark_study_tpu_torch.bn128 import constants as C
     from go_snark_study_tpu_torch.ops import mont_mul as mm
@@ -110,6 +179,8 @@ def check_kernels(torch, clock_hz, rows, card):
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1234)
     top_q, top_r = C.Q >> 224, C.R >> 224
+    k1, k2, k3, k4 = ("void point_add_kernel",), ("void mont_mul_kernel",), \
+        ("void small_ntt_kernel",), ("butterfly_kernel",)
 
     # K2: Fq and Fr at 2^16 lanes
     for p, top, tag in ((C.Q, top_q, "fq"), (C.R, top_r, "fr")):
@@ -117,13 +188,11 @@ def check_kernels(torch, clock_hz, rows, card):
         got, want = mm.mont_mul(a, b, p), mm.mont_mul_plain(a, b, p)
         err = max_abs_err(torch, got, want)
         assert torch.equal(got, want), f"K2 {tag}: kernel != plain (max abs err {err})"
-        ms = cuda_ms(torch, lambda: mm.mont_mul(a, b, p), 200)
-        plain = cuda_ms(torch, lambda: mm.mont_mul_plain(a, b, p), 5, warm=1)
-        if tag == "fq":
-            bnd, by = bound_ms(3 * 32 * LANES_MAIN, IMADS_PER_MONT_MUL * LANES_MAIN, clock_hz)
-            rows["K2"] = dict(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bnd, bound_by=by,
-                              shape=f"(8, {LANES_MAIN}) Fq")
-        print(f"[kernels] K2 mont_mul {tag} {LANES_MAIN} lanes: match, kernel {ms:.4f} ms, plain {plain:.3f} ms  ({card})")
+        t = timed(torch, lambda: mm.mont_mul(a, b, p), lambda: mm.mont_mul_plain(a, b, p), 200, k2, 5)
+        bnd, by = bound_ms(3 * 32 * LANES_MAIN, IMADS_PER_MONT_MUL * LANES_MAIN, clock_hz)
+        rows[f"K2 {tag}"] = dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by, shape=f"(8, {LANES_MAIN}) {tag}")
+        say("K2", f"mont_mul {tag} {LANES_MAIN} lanes", t, card)
+    rows["K2"] = rows["K2 fq"]
 
     # K1: all 8 instances, identity / equal / inverse lanes mixed in
     n = K1_LANES
@@ -164,24 +233,31 @@ def check_kernels(torch, clock_hz, rows, card):
             gl, wl = pa._leaves(got, arity), pa._leaves(want, arity)
             err = max_abs_err(torch, gl, wl)
             assert all(torch.equal(g, w) for g, w in zip(gl, wl)), f"K1 {form} G{arity}: kernel != plain"
-            ms = cuda_ms(torch, lambda: pa.point_add(form, arity, p1, p2), 50)
-            plain = cuda_ms(torch, lambda: pa.point_add_plain(form, arity, p1, p2), 2, warm=1)
+            t = timed(torch, lambda: pa.point_add(form, arity, p1, p2),
+                      lambda: pa.point_add_plain(form, arity, p1, p2), 50, k1)
             rows.setdefault("K1_instances", []).append(
-                dict(form=form, group=f"G{arity}", lanes=n, ms=ms, plain_ms=plain, max_abs_err=err))
-            print(f"[kernels] K1 {form:6s} G{arity} {n} lanes: match, kernel {ms:.4f} ms, plain {plain:.2f} ms  ({card})")
+                dict(t, form=form, group=f"G{arity}", lanes=n, max_abs_err=err))
+            say("K1", f"{form:6s} G{arity} {n} lanes", t, card)
 
-    # K1 at the MSM apply shape of the 2^16 proof: G1 madd_f over 24 x 2048 lanes
-    n = APPLY_LANES
-    p1 = tuple(rand_fq(torch, gen, n, top_q) for _ in range(3))
-    p2 = (rand_fq(torch, gen, n, top_q), rand_fq(torch, gen, n, top_q), Kq.ones_mont(n))
-    (g_pt, g_bad), (w_pt, w_bad) = pa.point_add("madd_f", 1, p1, p2), pa.point_add_plain("madd_f", 1, p1, p2)
-    assert torch.equal(g_bad, w_bad) and all(torch.equal(a, b) for a, b in zip(g_pt, w_pt)), "K1 apply shape"
-    ms = cuda_ms(torch, lambda: pa.point_add("madd_f", 1, p1, p2), 100)
-    plain = cuda_ms(torch, lambda: pa.point_add_plain("madd_f", 1, p1, p2), 2, warm=1)
-    bnd, by = bound_ms((9 * 32 + 4) * n, 11 * IMADS_PER_MONT_MUL * n, clock_hz)
-    rows["K1"] = dict(ms=ms, plain_ms=plain, max_abs_err=max_abs_err(torch, g_pt, w_pt),
-                      bound_ms=bnd, bound_by=by, shape=f"G1 madd_f, {n} lanes")
-    print(f"[kernels] K1 madd_f G1 {n} lanes (MSM apply step at 2^16): match, kernel {ms:.4f} ms, plain {plain:.2f} ms  ({card})")
+    # K1 at each call site of the 2^16 path, one per-lane launch there
+    for site, form, arity, n, per_prove in K1_SITES:
+        p1 = rand_point(torch, gen, n, arity, top_q)
+        p2 = rand_point(torch, gen, n, arity, top_q, Kq.ones_mont(n) if form.startswith("madd") else None)
+        got, want = pa.point_add(form, arity, p1, p2), pa.point_add_plain(form, arity, p1, p2)
+        if form.endswith("_f"):
+            (got, gb), (want, wb) = got, want
+            assert torch.equal(gb, wb), f"K1 {site}: flags differ"
+        gl, wl = pa._leaves(got, arity), pa._leaves(want, arity)
+        assert all(torch.equal(g, w) for g, w in zip(gl, wl)), f"K1 {site}: kernel != plain"
+        t = timed(torch, lambda: pa.point_add(form, arity, p1, p2), None, 100, k1)
+        prods = (11 if form.startswith("madd") else 16) * (1 if arity == 1 else 3)
+        bnd, by = bound_ms(arity * (9 * 32 + 4) * n, prods * IMADS_PER_MONT_MUL * n, clock_hz)
+        rows.setdefault("K1_sites", []).append(dict(
+            t, site=site, form=form, group=f"G{arity}", lanes=n, launches_per_prove=per_prove,
+            max_abs_err=max_abs_err(torch, gl, wl), bound_ms=bnd, bound_by=by))
+        say("K1", f"site {site}: {form} G{arity} {n} lanes, bound {bnd:.6f} ms ({by}), {per_prove} per prove", t, card)
+    apply_row = rows["K1_sites"][0]
+    rows["K1"] = dict(apply_row, shape=f"G1 madd_f, {apply_row['lanes']} lanes")
 
     # K3: g = 16, forward and inverse, L = 4096
     Kr = FieldKernels(C.R, DEVICE)
@@ -193,25 +269,22 @@ def check_kernels(torch, clock_hz, rows, card):
         got, want = nk.small_ntt(x, tw), nk.small_ntt_plain(x, tw)
         err = max_abs_err(torch, got, want)
         assert torch.equal(got, want), f"K3 inverse={inverse}: kernel != plain"
-        ms = cuda_ms(torch, lambda: nk.small_ntt(x, tw), 200)
-        plain = cuda_ms(torch, lambda: nk.small_ntt_plain(x, tw), 5, warm=1)
+        t = timed(torch, lambda: nk.small_ntt(x, tw), lambda: nk.small_ntt_plain(x, tw), 200, k3, 5)
         if not inverse:
             bnd, by = bound_ms(2 * 16 * 32 * L, 17 * IMADS_PER_MONT_MUL * L, clock_hz)
-            rows["K3"] = dict(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bnd, bound_by=by,
-                              shape=f"(8, 16, {L})")
-        print(f"[kernels] K3 small_ntt g=16 L={L} {'inverse' if inverse else 'forward'}: match, kernel {ms:.4f} ms, plain {plain:.3f} ms  ({card})")
+            rows["K3"] = dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by, shape=f"(8, 16, {L})")
+        say("K3", f"small_ntt g=16 L={L} {'inverse' if inverse else 'forward'}", t, card)
 
     # K4: 2^11 lanes (one stage of the 2^12 radix-2 transform)
     n = K4_LANES
-    e, o, t = (rand_fq(torch, gen, n, top_r) for _ in range(3))
-    got, want = nk.butterfly(e, o, t), nk.butterfly_plain(e, o, t)
+    e, o, tw4 = (rand_fq(torch, gen, n, top_r) for _ in range(3))
+    got, want = nk.butterfly(e, o, tw4), nk.butterfly_plain(e, o, tw4)
     err = max_abs_err(torch, got, want)
     assert all(torch.equal(a, b) for a, b in zip(got, want)), "K4: kernel != plain"
-    ms = cuda_ms(torch, lambda: nk.butterfly(e, o, t), 500)
-    plain = cuda_ms(torch, lambda: nk.butterfly_plain(e, o, t), 10, warm=1)
+    t = timed(torch, lambda: nk.butterfly(e, o, tw4), lambda: nk.butterfly_plain(e, o, tw4), 500, k4, 10)
     bnd, by = bound_ms(5 * 32 * n, IMADS_PER_MONT_MUL * n, clock_hz)
-    rows["K4"] = dict(ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bnd, bound_by=by, shape=f"(8, {n})")
-    print(f"[kernels] K4 butterfly {n} lanes: match, kernel {ms:.4f} ms, plain {plain:.3f} ms  ({card})")
+    rows["K4"] = dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by, shape=f"(8, {n})")
+    say("K4", f"butterfly {n} lanes", t, card)
 
 
 def kernel_objects():
@@ -374,17 +447,19 @@ def main(argv=None) -> int:
             "launches": launches,
             "max_abs_err": row.get("max_abs_err"),
             "ms": row.get("ms"),
+            "device_ms": row.get("device_ms"),
+            "wrapper_ms": row.get("wrapper_ms"),
             "plain_ms": row.get("plain_ms"),
             "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"),
             "library_ms": None,
             "match": row.get("max_abs_err") == 0 if row else None,
-            "kernel_ms": row.get("ms"),
             "shape": row.get("shape"),
             "path": f"2^{MAIN_LOG if path == 'main' else SMALL_LOG} proof",
         })
-    if "K1_instances" in rows:
-        print(json.dumps({"k1_instances": rows["K1_instances"]}))
+    for key in ("K1_instances", "K1_sites"):
+        if key in rows:
+            print(json.dumps({key.lower(): rows[key]}))
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
