@@ -5,15 +5,23 @@
     python3 chip_smoke.py --phases build,kernels
 
 Phases:
-  build    compile the four kernels of go_snark_study_tpu_torch/csrc with
-           nvcc (sm_90a), all at once; print seconds and ptxas registers and
-           spills per kernel.
+  build    compile the kernel sources of go_snark_study_tpu_torch/csrc with
+           nvcc (sm_90a), one process each, all at once; print seconds and
+           ptxas registers and spills per kernel function.
   kernels  hold each kernel against its plain PyTorch version on the card,
-           bit for bit, at the shapes the main path gives it; time both with
-           CUDA events.
+           bit for bit, at the shapes the main path gives it: K2 on Fq and
+           Fr; K1's eight per-lane instances and its MSM forms (apply,
+           seg-scan, reduce; G1 and G2, incomplete and complete, and a case
+           with planted equal points whose flag must fire); K3; K4.  Each
+           row gives the device time per launch from torch.profiler's device
+           events ("device", the "ms" of the JSON line), the CUDA-event time
+           of a loop of wrapper calls ("wrapper", host issue cost included),
+           the plain version's time and the bound.
   main     the port's main path at 2^16 constraints: FastGroth16 setup, two
            proofs (the second timed), verification, and a wrong public that
-           must fail.  K1, K2 and K3 must have launched during it.
+           must fail.  Every K1 form, K2 and K3 must have launched on it, and
+           K1 at most 80 times in one prove (printed by form); a third prove
+           runs under the profiler.
   small    a 2^12-constraint proof (radix-2 NTT): K4 must have launched.
 
 The kernel launch counts are set to 0 just before a path is driven and read
@@ -45,21 +53,13 @@ K1_LANES = 1 << 14  # K1: every instance, with edge-case lanes
 APPLY_LANES = 24 * 2048  # K1: MSM apply step at 2^16 (24 windows x 2048)
 K3_COLS = 4096  # K3: g = 16 leaf of a 2^16 four-step transform
 K4_LANES = 1 << 11  # K4: one radix-2 stage at 2^12
-# K1 call sites of the 2^16 proof (c = 11: 24 windows, m = 2048, K = 33,
-# p_cap = 3200, 1088 buckets = Q 17 x D 64): (site, form, group, lanes,
-# launches per prove over the five MSMs; fixed-base runs in setup only)
-K1_SITES = (
-    ("apply", "madd_f", 1, APPLY_LANES, 131),
-    ("apply", "madd_f", 2, APPLY_LANES, 33),
-    ("seg-scan", "jadd_f", 1, 24 * 3200, 48),
-    ("seg-scan", "jadd_f", 2, 24 * 3200, 12),
-    ("reduce-1", "jadd_f", 1, 24 * 17, 508),
-    ("reduce-1", "jadd_f", 2, 24 * 17, 127),
-    ("reduce-2", "jadd_f", 1, 24, 200),
-    ("reduce-2", "jadd_f", 2, 24, 50),
-    ("fixed-base", "jadd", 1, 67584, 0),
-    ("fixed-base", "jadd", 2, 67584, 0),
-)
+# K1's MSM forms at the 2^16 shapes: c = 11 gives 24 windows (one group),
+# m_pad = 67,584 points = K 33 x m 2048, p_cap 3200, 1088 buckets = Q 17 x D 64
+MSM_C, MSM_POINTS = 11, 67584
+FIXED_BASE_LANES = 67584  # K1 per-lane jadd of the setup's fixed-base commits
+# Montgomery products per add, Fq2 product = 3 and square = 2 Fq products
+PRODUCTS = {("madd", 1): 11, ("madd", 2): 29, ("jadd", 1): 16, ("jadd", 2): 43,
+            ("dbl", 1): 7, ("dbl", 2): 16}
 
 
 def card_line() -> str:
@@ -103,7 +103,7 @@ def _dev_us(e) -> float:
 
 
 def device_ms(torch, fn, reps: int, prefixes, warm: int = 2):
-    """Device time of the kernels whose names start with one of ``prefixes``,
+    """Device time of the kernels whose names contain one of ``prefixes``,
     read from torch.profiler device events over ``reps`` calls of ``fn``:
     (ms per launch, launches per call).  The wrapper's host work (checks,
     allocation, ctypes) is not in it, unlike :func:`cuda_ms`."""
@@ -119,7 +119,7 @@ def device_ms(torch, fn, reps: int, prefixes, warm: int = 2):
         torch.cuda.synchronize()
     total = count = 0
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CPU and e.key.startswith(tuple(prefixes)):
+        if e.device_type != DeviceType.CPU and any(k in e.key for k in prefixes):
             total += _dev_us(e)
             count += e.count
     if count == 0:
@@ -179,8 +179,8 @@ def check_kernels(torch, clock_hz, rows, card):
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1234)
     top_q, top_r = C.Q >> 224, C.R >> 224
-    k1, k2, k3, k4 = ("void point_add_kernel",), ("void mont_mul_kernel",), \
-        ("void small_ntt_kernel",), ("butterfly_kernel",)
+    k1, k2, k3, k4 = ("point_add_kernel",), ("mont_mul_kernel",), ("small_ntt_kernel",), \
+        ("butterfly_kernel",)
 
     # K2: Fq and Fr at 2^16 lanes
     for p, top, tag in ((C.Q, top_q, "fq"), (C.R, top_r, "fr")):
@@ -239,25 +239,21 @@ def check_kernels(torch, clock_hz, rows, card):
                 dict(t, form=form, group=f"G{arity}", lanes=n, max_abs_err=err))
             say("K1", f"{form:6s} G{arity} {n} lanes", t, card)
 
-    # K1 at each call site of the 2^16 path, one per-lane launch there
-    for site, form, arity, n, per_prove in K1_SITES:
-        p1 = rand_point(torch, gen, n, arity, top_q)
-        p2 = rand_point(torch, gen, n, arity, top_q, Kq.ones_mont(n) if form.startswith("madd") else None)
-        got, want = pa.point_add(form, arity, p1, p2), pa.point_add_plain(form, arity, p1, p2)
-        if form.endswith("_f"):
-            (got, gb), (want, wb) = got, want
-            assert torch.equal(gb, wb), f"K1 {site}: flags differ"
+    # K1 per lane at its remaining call site: the setup's fixed-base commits
+    for arity in (1, 2):
+        n = FIXED_BASE_LANES
+        p1, p2 = rand_point(torch, gen, n, arity, top_q), rand_point(torch, gen, n, arity, top_q)
+        got, want = pa.point_add("jadd", arity, p1, p2), pa.point_add_plain("jadd", arity, p1, p2)
         gl, wl = pa._leaves(got, arity), pa._leaves(want, arity)
-        assert all(torch.equal(g, w) for g, w in zip(gl, wl)), f"K1 {site}: kernel != plain"
-        t = timed(torch, lambda: pa.point_add(form, arity, p1, p2), None, 100, k1)
-        prods = (11 if form.startswith("madd") else 16) * (1 if arity == 1 else 3)
-        bnd, by = bound_ms(arity * (9 * 32 + 4) * n, prods * IMADS_PER_MONT_MUL * n, clock_hz)
+        assert all(torch.equal(g, w) for g, w in zip(gl, wl)), f"K1 fixed-base G{arity}: kernel != plain"
+        t = timed(torch, lambda: pa.point_add("jadd", arity, p1, p2), None, 100, k1)
+        bnd, by = bound_ms(arity * 9 * 32 * n, PRODUCTS["jadd", arity] * IMADS_PER_MONT_MUL * n, clock_hz)
         rows.setdefault("K1_sites", []).append(dict(
-            t, site=site, form=form, group=f"G{arity}", lanes=n, launches_per_prove=per_prove,
+            t, site="fixed-base (per-lane jadd)", group=f"G{arity}", shape=f"{n} lanes",
             max_abs_err=max_abs_err(torch, gl, wl), bound_ms=bnd, bound_by=by))
-        say("K1", f"site {site}: {form} G{arity} {n} lanes, bound {bnd:.6f} ms ({by}), {per_prove} per prove", t, card)
-    apply_row = rows["K1_sites"][0]
-    rows["K1"] = dict(apply_row, shape=f"G1 madd_f, {apply_row['lanes']} lanes")
+        say("K1", f"per-lane jadd G{arity} {n} lanes (fixed-base), bound {bnd:.6f} ms ({by})", t, card)
+    rows["K1"] = rows["K1_sites"][0]
+    check_msm_forms(torch, clock_hz, rows, card, gen)
 
     # K3: g = 16, forward and inverse, L = 4096
     Kr = FieldKernels(C.R, DEVICE)
@@ -287,12 +283,118 @@ def check_kernels(torch, clock_hz, rows, card):
     say("K4", f"butterfly {n} lanes", t, card)
 
 
+def check_msm_forms(torch, clock_hz, rows, card, gen):
+    """K1's MSM forms against their plain versions, bit for bit and with
+    equal flags, at the 2^16 shapes: apply on a real plan of random digits,
+    seg-scan on its compacted partials (24 x 3200), reduce on the buckets
+    (24 x 1088); G1 and G2, incomplete and complete; and the incomplete
+    forms again with a third of the points equal, so that the flag fires."""
+    from go_snark_study_tpu_torch.bn128 import constants as C
+    from go_snark_study_tpu_torch.ops import msm
+    from go_snark_study_tpu_torch.ops import msm_kernels as mk
+    from go_snark_study_tpu_torch.ops import point_add as pa
+    from go_snark_study_tpu_torch.ops.curve_ops import G1Batch, tree_map
+    from go_snark_study_tpu_torch.ops.limbs import FieldKernels
+
+    Kq = FieldKernels(C.Q, DEVICE)
+    top_q = C.Q >> 224
+    n, c = MSM_POINTS, MSM_C
+    m_buckets, d_chunk = msm.bucket_count(c)
+    q_chunk = m_buckets // d_chunk
+    eng = msm.MSMEngine(G1Batch(Kq), None, C.R)
+    scs = torch.randint(0, 1 << 32, (8, n), generator=gen, device=DEVICE, dtype=torch.int64)
+    scs[7] %= C.R >> 224
+    plans = eng.make_plans(scs.to(torch.int32), c)
+    assert plans["mode"] == "tiled" and len(plans["plans"]) == 1, "expected one tiled window group"
+    plan = plans["plans"][0]
+    k, wg, m = plan["ord3"].shape
+    p_cap = plan["comp_dig"].shape[1]
+    sdig = plan["comp_dig"]
+    print(f"[kernels] MSM plan at 2^16: c {c}, K {k}, Wg {wg}, m {m}, p_cap {p_cap}, "
+          f"buckets {m_buckets} = Q {q_chunk} x D {d_chunk}  ({card})")
+    # work these inputs need: adds that are not run openings, seg-scan lanes
+    # that merge, per step
+    apply_adds = int((plan["mag3"][1:] == plan["mag3"][:-1]).sum())
+    lane = torch.arange(p_cap, device=DEVICE)
+    seg_steps = max(1, (p_cap - 1).bit_length())
+    seg_adds = sum(int(((lane >= (1 << s_)) & (torch.roll(sdig, 1 << s_, -1) == sdig)).sum())
+                   for s_ in range(seg_steps))
+    eq = lambda a, b, ar: all(torch.equal(x, y) for x, y in zip(pa._leaves(a, ar), pa._leaves(b, ar)))
+    fired = {}
+    for arity in (1, 2):
+        for complete, planted in ((False, False), (True, False), (False, True)):
+            tag = f"G{arity} {'complete' if complete else 'flagged'}{' planted' if planted else ''}"
+            pts = rand_point(torch, gen, n, arity, top_q, Kq.ones_mont(n))
+            if planted:  # every third point equal to point 0
+                sel = (torch.arange(n, device=DEVICE) % 3 == 0)[None]
+                pts = tree_map(lambda t: torch.where(sel, t[:, :1], t).contiguous(), pts)
+            g_a, gb_a = mk.apply(pts, plan, arity, complete)
+            w_a, wb_a = mk.apply_plain(pts, plan, arity, complete)
+            assert eq(g_a, w_a, arity) and bool(gb_a) == bool(wb_a), f"K1 apply {tag}: kernel != plain"
+            g_s, gb_s = mk.seg_scan(w_a, sdig, arity, complete)
+            w_s, wb_s = mk.seg_scan_plain(w_a, sdig, arity, complete)
+            assert eq(g_s, w_s, arity) and bool(gb_s) == bool(wb_s), f"K1 seg-scan {tag}: kernel != plain"
+            bk = msm.MSMEngine._runs_to_buckets(w_s, sdig, m_buckets)
+            g_r, gb_r = mk.reduce(bk, d_chunk, arity, complete)
+            w_r, wb_r = mk.reduce_plain(bk, d_chunk, arity, complete)
+            assert eq(g_r, w_r, arity) and bool(gb_r) == bool(wb_r), f"K1 reduce {tag}: kernel != plain"
+            fired[tag] = (bool(wb_a), bool(wb_s), bool(wb_r))
+            print(f"[kernels] K1 forms {tag}: apply, seg-scan, reduce match; flags (apply, seg, reduce) "
+                  f"{fired[tag]}  ({card})")
+            if planted:
+                assert fired[tag][0], f"K1 apply {tag}: planted equal points did not fire the flag"
+                continue
+            if complete:
+                continue
+            # times and bounds of the incomplete forms, the main path's
+            ab = 96 * arity
+            forms = (
+                ("apply", mk.APPLY, ("msm_apply_kernel",), lambda: mk.apply(pts, plan, arity, False),
+                 lambda: mk.apply_plain(pts, plan, arity, False),
+                 n * ab + k * wg * m * 21 + wg * p_cap * ab, apply_adds * PRODUCTS["madd", arity],
+                 f"K {k} x {wg * m} lanes", 1),
+                ("seg-scan", mk.SEG_SCAN, ("msm_seg_step_kernel",),
+                 lambda: mk.seg_scan(w_a, sdig, arity, False), lambda: mk.seg_scan_plain(w_a, sdig, arity, False),
+                 seg_steps * (2 * wg * p_cap * ab + 4 * wg * p_cap), seg_adds * PRODUCTS["jadd", arity],
+                 f"{seg_steps} steps x {wg} x {p_cap} lanes", seg_steps),
+                ("reduce-1", mk.REDUCE, ("msm_reduce1_kernel",), lambda: mk.reduce(bk, d_chunk, arity, False),
+                 lambda: mk.reduce_plain(bk, d_chunk, arity, False),
+                 wg * m_buckets * ab + 2 * wg * q_chunk * ab,
+                 wg * q_chunk * (2 * d_chunk - 1) * PRODUCTS["jadd", arity],
+                 f"{wg} x {q_chunk} lanes x {2 * d_chunk - 1} adds", 1),
+                ("reduce-2", mk.REDUCE, ("msm_reduce2_kernel",), lambda: mk.reduce(bk, d_chunk, arity, False),
+                 None, 2 * wg * q_chunk * ab + wg * ab,
+                 wg * ((3 * q_chunk - 1) * PRODUCTS["jadd", arity]
+                       + (d_chunk.bit_length() - 1) * PRODUCTS["dbl", arity]),
+                 f"{wg} lanes x {3 * q_chunk - 1} adds + {d_chunk.bit_length() - 1} doublings", 1),
+            )
+            for site, kern, names, fn, plain, nbytes, prods, shape, per_call in forms:
+                t = timed(torch, fn, plain, 5 if site == "seg-scan" else 10, names, plain_reps=1)
+                bnd, by = bound_ms(nbytes / per_call, prods * IMADS_PER_MONT_MUL / per_call, clock_hz)
+                rows.setdefault("K1_sites", []).append(dict(
+                    t, site=site, kernel=kern.name, group=f"G{arity}", shape=shape, max_abs_err=0,
+                    bound_ms=bnd, bound_by=by))
+                say("K1", f"form {site} G{arity} ({shape}), bound {bnd:.6f} ms/launch ({by})", t, card)
+    rows["K1_forms_flags"] = fired
+    by_site = {r["site"]: r for r in rows["K1_sites"] if r["group"] == "G1"}
+    rows["K1 apply"], rows["K1 seg-scan"] = by_site["apply"], by_site["seg-scan"]
+    r1, r2 = by_site["reduce-1"], by_site["reduce-2"]  # one REDUCE call: both stages
+    rows["K1 reduce"] = dict(
+        r1, ms=(r1["ms"] + r2["ms"]) / 2, device_ms=(r1["ms"] + r2["ms"]) / 2, launches_per_call=2,
+        bound_ms=(r1["bound_ms"] + r2["bound_ms"]) / 2, shape=f"stage 1 {r1['shape']}; stage 2 {r2['shape']}")
+
+
+K1_FORMS = ("K1", "K1 apply", "K1 seg-scan", "K1 reduce")
+
+
 def kernel_objects():
     from go_snark_study_tpu_torch.ops.mont_mul import MONT_MUL
+    from go_snark_study_tpu_torch.ops.msm_kernels import APPLY, REDUCE, SEG_SCAN
     from go_snark_study_tpu_torch.ops.ntt_kernels import BUTTERFLY, SMALL_NTT
     from go_snark_study_tpu_torch.ops.point_add import POINT_ADD
 
-    return {"K1": POINT_ADD, "K2": MONT_MUL, "K3": SMALL_NTT, "K4": BUTTERFLY}
+    return {"K1": POINT_ADD, "K1 apply": APPLY, "K1 seg-scan": SEG_SCAN, "K1 reduce": REDUCE,
+            "K2": MONT_MUL, "K3": SMALL_NTT, "K4": BUTTERFLY}
 
 
 def reset_counts():
@@ -325,13 +427,21 @@ def profile_prove(torch, fast, r1cs, pk, rng, tag: str, card: str):
     # device-side events only: a CPU op's device time repeats its kernels'
     events = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU and dev(e) > 0]
     busy_us = sum(dev(e) for e in events)
-    ours = sum(dev(e) for e in events if e.key.startswith(("void point_add_kernel", "void mont_mul_kernel",
-                                                         "void small_ntt_kernel", "butterfly_kernel")))
+    names = ("point_add_kernel", "msm_", "mont_mul_kernel", "small_ntt_kernel", "butterfly_kernel")
+    ours = sum(dev(e) for e in events if any(k in e.key for k in names))
+    k1 = {}
+    for e in events:
+        for k in ("point_add_kernel", "msm_apply", "msm_seg_step", "msm_reduce1", "msm_reduce2"):
+            if k in e.key:
+                k1[k] = k1.get(k, 0.0) + dev(e) / 1e3
     print(f"[{tag}] profiled prove: wall {wall:.3f} s, device busy {busy_us / 1e6:.4f} s "
           f"({100 * busy_us / 1e6 / wall:.1f}% of wall), of which K1-K4 {ours / 1e6:.4f} s; "
           f"{sum(e.count for e in events)} device launches of {len(events)} kinds  ({card})")
+    print(f"[{tag}] K1 device ms in the profiled prove by kernel: "
+          f"{json.dumps({k: round(v, 4) for k, v in k1.items()})}  ({card})")
     for e in sorted(events, key=dev, reverse=True)[:8]:
         print(f"[{tag}]   {dev(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    return dict(wall_s=wall, busy_s=busy_us / 1e6, launches=sum(e.count for e in events))
 
 
 def run_path(torch, log_n: int, seed_rng: int, timed_second: bool, card: str):
@@ -383,6 +493,9 @@ def run_path(torch, log_n: int, seed_rng: int, timed_second: bool, card: str):
     )
     print(f"[{tag}] launches during one prove: {json.dumps(prove_counts)}; whole path: {json.dumps(counts)}")
     print(f"[{tag}] K1 instance launches on the path: {json.dumps(instances)}")
+    k1_prove = {k: prove_counts[k] for k in K1_FORMS}
+    print(f"[{tag}] K1 launches per prove by form: {json.dumps(k1_prove)}, "
+          f"total {sum(k1_prove.values())}  ({card})")
     if timed_second:
         profile_prove(torch, fast, r1cs, setup.pk, rng, tag, card)
     return dict(setup_s=t_setup, prove_s=t_prove2 or t_prove1, counts=counts, prove_counts=prove_counts,
@@ -415,10 +528,14 @@ def main(argv=None) -> int:
         log = _build.build_all()
         print(f"[build] {len(log)} kernels in {time.perf_counter() - t0:.1f} s wall")
         for name, rec in log.items():
-            regs = [ln.strip() for ln in rec["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
+            regs = [ln.strip().replace("ptxas info    : ", "") for ln in rec["ptxas"].splitlines()
+                    if "registers" in ln or "spill" in ln or "Function properties" in ln]
             print(f"[build] {name}.cu: {rec['seconds']:.1f} s{' (cached)' if rec['cached'] else ''}")
             for ln in regs:
                 print(f"[build]   {ln}")
+        spills = [ln for rec in log.values() for ln in rec["ptxas"].splitlines()
+                  if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill stores")]
+        print(f"[build] functions with a stack frame or spills: {len(spills)}  ({card})")
 
     rows = {}
     if "kernels" in phases:
@@ -427,8 +544,11 @@ def main(argv=None) -> int:
     paths = {}
     if "main" in phases:
         paths["main"] = run_path(torch, MAIN_LOG, 7, True, card)
-        for k in ("K1", "K2", "K3"):
-            assert paths["main"]["prove_counts"][k] > 0, f"{k} not launched during the 2^{MAIN_LOG} prove"
+        main_path = paths["main"]
+        for k in K1_FORMS + ("K2", "K3"):
+            assert main_path["counts"][k] > 0, f"{k} not launched on the 2^{MAIN_LOG} path"
+        k1_per_prove = sum(main_path["prove_counts"][k] for k in K1_FORMS)
+        assert k1_per_prove <= 80, f"K1 launched {k1_per_prove} times in one 2^{MAIN_LOG} prove"
     if "small" in phases:
         paths["small"] = run_path(torch, SMALL_LOG, 7, False, card)
         assert paths["small"]["counts"]["K4"] > 0, f"K4 not launched on the 2^{SMALL_LOG} path"

@@ -34,7 +34,7 @@ __all__ = ["Kernel", "build_all", "SOURCES", "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("mont_mul", "point_add", "small_ntt", "butterfly")
+SOURCES = ("mont_mul", "point_add", "msm_scan", "small_ntt", "butterfly")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

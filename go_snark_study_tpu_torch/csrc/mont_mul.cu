@@ -2,9 +2,16 @@
 //
 // Replaces go_snark_study_tpu/ops/pallas_field.py::_mont_mul_kernel.  One
 // lane per thread; the 8 limbs of each operand are read with coalesced
-// limb-row loads, the CIOS product runs in registers, the canonical result
-// is written once.  Bound on the H100: bytes (96 per lane against ~264
-// IMADs), so the kernel is a single pass over its operands.
+// limb-row loads, the CIOS product (field.cuh: PTX carry chains) runs in
+// registers, the canonical result is written once.  Bound on the H100:
+// bytes (96 per lane against ~264 IMADs), so the kernel is a single pass
+// over its operands.
+//
+// Launch shape: 128 threads a block.  The H pipeline's 65,536 lanes are
+// then 512 blocks, ~3.9 per SM, all resident in one wave (about 40
+// registers a thread), so every SM streams its share at once and the last
+// SM finishes at most one block after the mean; 256-thread blocks would
+// leave 8 SMs with half the work of the others.
 
 #include "field.cuh"
 
@@ -22,7 +29,7 @@ GS_HD void mont_mul_lane(const uint32_t* a, const uint32_t* b, uint32_t* out,
 #include <cuda_runtime.h>
 
 template <class P>
-__global__ void __launch_bounds__(256) mont_mul_kernel(
+__global__ void __launch_bounds__(128) mont_mul_kernel(
     const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
     uint32_t* __restrict__ out, long long n) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -31,7 +38,7 @@ __global__ void __launch_bounds__(256) mont_mul_kernel(
 
 extern "C" int gs_mont_mul(int field, const void* a, const void* b, void* out,
                            long long n, void* stream) {
-  const int threads = 256;
+  const int threads = 128;
   unsigned blocks = (unsigned)((n + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
   auto pa = (const uint32_t*)a;

@@ -332,33 +332,14 @@ class _BatchGroup:
         self.K = K
         self._arity = coord_arity
 
-    # -- whole-point adds: kernel K1 ------------------------------------
-    def madd(self, p1, p2):
-        """Mixed add p1 (Jacobian) + p2 (affine, z in {0, 1})."""
-        return _pa.point_add("madd", self._arity, p1, p2)
-
+    # -- whole-point add: kernel K1 (the MSM's adds are K1's MSM forms,
+    # :mod:`.msm_kernels`) ------------------------------------------------
     def jadd(self, p1, p2):
         """Full Jacobian add."""
         return _pa.point_add("jadd", self._arity, p1, p2)
 
-    def madd_flagged(self, p1, p2):
-        """Incomplete mixed add: ``(p1 + p2, degenerate_mask)``."""
-        return _pa.point_add("madd_f", self._arity, p1, p2)
-
-    def jadd_flagged(self, p1, p2):
-        """Incomplete full Jacobian add: ``(p1 + p2, degenerate_mask)``."""
-        return _pa.point_add("jadd_f", self._arity, p1, p2)
-
     def double(self, p):
         return jacobian_double(self.F, p)
-
-    def neg_y_where(self, p, mask):
-        """Conditionally negate points laneswise: where ``mask`` is true the
-        point's y coordinate is replaced by -y (identity lanes stay identity
-        since -0 = 0).  Used by the signed-digit MSM to fold the digit sign
-        into the accumulated point."""
-        x, y, z = p
-        return (x, self.F.select(mask, self.F.neg(y), y), z)
 
     def is_zero(self, p):
         return self.F.is_zero(p[2])

@@ -3,8 +3,9 @@
 Replaces ``go_snark_study_tpu/ops/pallas_field.py::_mont_mul_kernel``
 (:44-84, built by ``make_pallas_mont_mul`` :87-119, dispatched from
 ``limbs.py:241-271``).  The kernel is ``csrc/mont_mul.cu``: one lane per
-thread, 8×32-bit CIOS with 64-bit partial products, a canonical (< p)
-output.
+thread, 8×32-bit CIOS whose rows are PTX carry chains (``csrc/field.cuh``),
+a canonical (< p) output, 128-thread blocks so that the 65,536 lanes of
+the H pipeline are one even wave over the 132 SMs.
 
 What bounds it on the H100: per lane it reads 2×32 bytes and writes 32
 bytes, and does 8·(2·8 + 1) = 136 32×32→64-bit products (≈ 264 IMADs).

@@ -16,8 +16,10 @@ What differs from the JAX package:
   * ``jnp.argsort`` is stable; ``torch.sort(..., stable=True)`` keeps the
     same order, so buckets accumulate in the same order and the window sums
     are the same Jacobian coordinates.
-  * Every whole-point add is K1 (:mod:`.point_add`); the flags stay on the
-    device until the caller reads them once.
+  * The serial loops (tiled accumulation with compaction, the merge
+    scan's steps, the bucket reduction) are K1's MSM forms
+    (:mod:`.msm_kernels`): one launch each, every lane's loop inside the
+    kernel.  The flags stay on the device until the caller reads them once.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from .curve_ops import jacobian_double, tree_leaves, tree_map
+from . import msm_kernels as _mk
+from .curve_ops import tree_leaves, tree_map
 from .limbs import LIMBS, ints_to_limbs_np, to_u64
 
 __all__ = [
@@ -195,12 +198,6 @@ class MSMEngine:
     def _false(self):
         return torch.zeros((), dtype=torch.bool, device=self.device)
 
-    def _jadd_f(self, a, b):
-        if self.complete:
-            return self.bg.jadd(a, b), self._false()
-        pt, bad = self.bg.jadd_flagged(a, b)
-        return pt, bad.any()
-
     # ------------------------------------------------------------------
     # device pipeline
     # ------------------------------------------------------------------
@@ -240,72 +237,19 @@ class MSMEngine:
 
     def _apply_impl(self, points, plan: dict, c: int):
         """Apply a group plan to an affine point set: tiled accumulation
-        (K steps of wide mixed adds with sign folding), compaction, and the
-        segmented merge scan.  Returns (buckets, bad) with bucket leaves
+        (K steps of wide mixed adds with sign folding) and compaction, then
+        the segmented merge scan.  Returns (buckets, bad) with bucket leaves
         (8, Wg, m_buckets)."""
-        ord3, mag3, neg3 = plan["ord3"], plan["mag3"], plan["neg3"]
-        k, wg, m = ord3.shape
         m_buckets, _ = bucket_count(c)
-        acc = self.bg.zeros(wg * m)
-        prev_mag = torch.full((wg * m,), -9, dtype=torch.int32, device=self.device)
-        bad = self._false()
-        accs = []
-        for j in range(k):
-            fid = ord3[j].reshape(-1)
-            pt = tree_map(lambda c_: c_.index_select(1, fid), points)
-            pt = self.bg.neg_y_where(pt, neg3[j].reshape(-1))
-            mflat = mag3[j].reshape(-1)
-            boundary = mflat != prev_mag
-            if self.complete:
-                added = self.bg.madd(acc, pt)
-            else:
-                added, badm = self.bg.madd_flagged(acc, pt)
-                # only flags whose result is consumed count: run interiors
-                # of live (nonzero-magnitude) buckets
-                bad = bad | (badm & ~boundary & (mflat > 0)).any()
-            acc = tree_map(
-                lambda p_, a_: torch.where(boundary.unsqueeze(0), p_, a_), pt, added
-            )
-            prev_mag = mflat
-            accs.append(acc)
-
-        idx3, comp_dig = plan["idx3"], plan["comp_dig"]
-        p_cap = comp_dig.shape[1]
-        widx = torch.arange(wg, device=self.device).view(1, wg, 1).expand_as(idx3)
-
-        def compact(*cs):
-            src = torch.stack(cs, 1).reshape(LIMBS, k, wg, m)  # (8, K, Wg, m)
-            out = torch.zeros((LIMBS, wg, p_cap + 1), dtype=src.dtype, device=src.device)
-            out[:, widx, idx3] = src
-            return out[:, :, :p_cap].contiguous()
-
-        comp_pts = tree_map(compact, *accs)
-        scanned, bad2 = self._seg_scan_runs(comp_pts, comp_dig)
-        return self._runs_to_buckets(scanned, comp_dig, m_buckets), bad | bad2
+        comp_pts, bad = _mk.apply(points, plan, self.bg._arity, self.complete)
+        scanned, bad2 = self._seg_scan_runs(comp_pts, plan["comp_dig"])
+        return self._runs_to_buckets(scanned, plan["comp_dig"], m_buckets), bad | bad2
 
     def _seg_scan_runs(self, pts, sdig):
         """Segmented Hillis-Steele inclusive scan over contiguous runs of
         equal ``sdig`` along the LAST axis.  Negative digits are sentinels.
         Returns (scanned, bad)."""
-        P = sdig.shape[-1]
-        lane = torch.arange(P, device=sdig.device).expand_as(sdig)
-        steps = max(1, (P - 1).bit_length())
-        live = sdig > 0  # bucket-0 / sentinel results are discarded
-        acc, bad = pts, self._false()
-        for s in range(steps):
-            d = 1 << s
-            rolled_dig = torch.roll(sdig, d, dims=-1)
-            same = torch.logical_and(lane >= d, rolled_dig == sdig)
-            prev = tree_map(lambda c_: torch.roll(c_, d, dims=-1), acc)
-            if self.complete:
-                summed = self.bg.jadd(acc, prev)
-            else:
-                summed, badm = self.bg.jadd_flagged(acc, prev)
-                bad = bad | (badm & same & live).any()
-            acc = tree_map(
-                lambda s_, a_: torch.where(same.unsqueeze(0), s_, a_), summed, acc
-            )
-        return acc, bad
+        return _mk.seg_scan(pts, sdig, self.bg._arity, self.complete)
 
     @staticmethod
     def _runs_to_buckets(acc, sdig, m_buckets: int):
@@ -353,7 +297,7 @@ class MSMEngine:
         spts = tree_map(
             lambda c_: c_.index_select(1, flat).reshape(LIMBS, w, n), points
         )
-        spts = self.bg.neg_y_where(spts, plan["sneg"])
+        spts = _mk.neg_y_where(spts, plan["sneg"], self.bg._arity)
         scanned, bad = self._seg_scan_runs(spts, smag)
         buckets = self._runs_to_buckets(scanned, smag, m_buckets)
         sums, bad2 = self._reduce_buckets(buckets, c)
@@ -365,54 +309,8 @@ class MSMEngine:
         combine the Q chunk aggregates with a second Q-step scan:
         Σ_b b·B_b = D·Σ_q q·S_q + Σ_q T_q.  buckets leaves (8, W, M);
         returns (sums, bad) with sum leaves (8, W)."""
-        F = self.bg.F
-        m_buckets, d_chunk = bucket_count(c)
-        w = tree_leaves(buckets)[0].shape[1]
-        q_chunk = m_buckets // d_chunk
-
-        # (8, W, M) -> (D, 8, W, Q) with j (minor bucket index) leading,
-        # j = D-1 first
-        def to_scan(c_):
-            b4 = c_.reshape(LIMBS, w, q_chunk, d_chunk).permute(3, 0, 1, 2)
-            return torch.flip(b4, (0,))
-
-        b4 = tree_map(to_scan, buckets)
-        zero = tree_map(lambda c_: torch.zeros_like(c_[0]), b4)  # (8, W, Q)
-        running, t_sum, bad = zero, zero, self._false()
-        for j in range(d_chunk - 1):  # j = D-1 .. 1
-            bj = tree_map(lambda c_: c_[j].contiguous(), b4)
-            running, b1 = self._jadd_f(running, bj)
-            t_sum, b2 = self._jadd_f(t_sum, running)
-            bad = bad | b1 | b2
-        b0 = tree_map(lambda c_: c_[d_chunk - 1].contiguous(), b4)  # j = 0
-        s_sum, b_ = self._jadd_f(running, b0)  # S_q, leaves (8, W, Q)
-        bad = bad | b_
-
-        # combine chunks: Σ_q q·S_q (double-running over q) and Σ_q T_q,
-        # both in ONE Q-step scan at W lanes, q descending
-        def chunk_scan(c_):
-            return torch.flip(c_.permute(2, 0, 1), (0,))  # (Q, 8, W)
-
-        sq = tree_map(chunk_scan, s_sum)
-        tq = tree_map(chunk_scan, t_sum)
-        zero_w = tree_map(lambda c_: torch.zeros_like(c_[0]), sq)
-        run_s, inner, tot_t = zero_w, zero_w, zero_w
-        for q in range(q_chunk - 1):
-            s_j = tree_map(lambda c_: c_[q].contiguous(), sq)
-            t_j = tree_map(lambda c_: c_[q].contiguous(), tq)
-            run_s, b1 = self._jadd_f(run_s, s_j)
-            inner, b2 = self._jadd_f(inner, run_s)
-            tot_t, b3 = self._jadd_f(tot_t, t_j)
-            bad = bad | b1 | b2 | b3
-        # q = 0 contributes only to Σ T_q
-        tot_t, b_ = self._jadd_f(
-            tot_t, tree_map(lambda c_: c_[q_chunk - 1].contiguous(), tq)
-        )
-        bad = bad | b_
-        for _ in range(d_chunk.bit_length() - 1):  # × D
-            inner = jacobian_double(F, inner)
-        out, b_ = self._jadd_f(inner, tot_t)
-        return out, bad | b_
+        _, d_chunk = bucket_count(c)
+        return _mk.reduce(buckets, d_chunk, self.bg._arity, self.complete)
 
     # ------------------------------------------------------------------
     # eager pipeline: plans, then window sums

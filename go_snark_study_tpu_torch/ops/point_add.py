@@ -12,9 +12,13 @@ lanes that need it.
 
 What bounds it on the H100: operations.  A G1 incomplete mixed add reads
 6×32 bytes, writes 3×32 + 4, and does 11 Montgomery products (≈ 2,900
-IMADs) per lane; G2 triples the products and doubles the bytes.  One lane
-per thread keeps all of a point's intermediates in registers, as the TPU
-kernel kept them in VMEM; the cost left is the multiply count.
+IMADs) per lane; G2 triples the products and doubles the bytes.  A G1
+lane is one thread and a G2 lane a pair of threads (one Fq2 component
+each, ``Fp2S`` in ``csrc/field.cuh``), so a point's intermediates stay in
+registers without spilling, as the TPU kernel kept them in VMEM; the cost
+left is the multiply count.  On the 2^16 path this per-lane kernel runs
+the setup's fixed-base commits; the MSM's adds are K1's MSM forms
+(:mod:`.msm_kernels`).
 
 Beside the kernel: :func:`point_add_plain`, the plain PyTorch version
 (the :mod:`.curve_ops` formulas over the plain ``U64Field``), and the

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version,
-bit for bit, and a seeded setup and proof against the JAX package's record.
+bit for bit (K1's MSM forms with their flags), and a seeded setup and proof
+against the JAX package's record.
 
 These tests need a CUDA device and skip without one.  They import neither
 ``jax`` nor the JAX package, so they run where JAX is not installed:
@@ -19,6 +20,7 @@ from go_snark_study_tpu_torch.ops import point_add as pa
 from go_snark_study_tpu_torch.ops.limbs import FieldKernels
 from go_snark_study_tpu_torch.ops.ntt import NTTEngine
 
+from test_torch_msm_scan import C_BITS, CASES, D_CHUNK, IDS, TILE, _leaves, _unleaves, make_inputs
 from test_torch_prover import CIRCUIT_SEED, N_CONSTRAINTS, RNG_SEED, g1_from, g2_from, load_golden
 
 
@@ -60,6 +62,35 @@ def test_kernels_match_plain_on_card(cuda_device):
         assert torch.equal(nk.small_ntt(x, tw), nk.small_ntt_plain(x, tw))
     e, o, t = rand(777, C.R), rand(777, C.R), rand(777, C.R)
     assert all(torch.equal(x, y) for x, y in zip(nk.butterfly(e, o, t), nk.butterfly_plain(e, o, t)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_msm_forms_match_plain_on_card(cuda_device, case):
+    """K1's MSM forms (apply, seg-scan, reduce) against their plain versions
+    on the card, on the CPU tests' seeded inputs: equal limbs, equal flags,
+    and the planted cases fire every flag."""
+    from go_snark_study_tpu_torch.ops import msm
+    from go_snark_study_tpu_torch.ops import msm_kernels as mk
+    from go_snark_study_tpu_torch.ops.curve_ops import G1Batch
+
+    arity, complete, planted = case
+    pts, digits, seg, bk = make_inputs(arity, planted)
+    dev = lambda p: _unleaves([torch.from_numpy(c).to(cuda_device) for c in _leaves(p, arity)], arity)
+    eng = msm.MSMEngine(G1Batch(FieldKernels(C.Q, cuda_device)), None, C.R, window_bits=C_BITS,
+                        tile_threshold=TILE, tile_lanes=TILE)
+    plan = eng._plan_impl(torch.from_numpy(digits).to(cuda_device), C_BITS)
+    for kernel, plain, args in (
+        (mk.apply, mk.apply_plain, (dev(pts), plan)),
+        (mk.seg_scan, mk.seg_scan_plain, (dev(seg), plan["comp_dig"])),
+        (mk.reduce, mk.reduce_plain, (dev(bk), D_CHUNK)),
+    ):
+        (got, gbad), (want, wbad) = kernel(*args, arity, complete), plain(*args, arity, complete)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(_leaves(got, arity), _leaves(want, arity))), kernel
+        assert bool(gbad) == bool(wbad), kernel
+        if planted:
+            assert bool(gbad), kernel
 
 
 @pytest.mark.gpu
