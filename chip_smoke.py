@@ -15,7 +15,7 @@ Phases:
            with planted equal points whose flag must fire); K3; K4.  Each
            row gives the device time per launch from torch.profiler's device
            events ("device", the "ms" of the JSON line), the CUDA-event time
-           of a loop of wrapper calls ("wrapper", host issue cost included),
+           of a loop of wrapper calls ("wrapper", the host's launch cost included),
            the plain version's time and the bound.
   main     the port's main path at 2^16 constraints: FastGroth16 setup, two
            proofs (the second timed), verification, and a wrong public that
@@ -145,7 +145,7 @@ def rand_fq(torch, gen, n: int, top: int):
 
 def timed(torch, fn, plain, reps: int, prefixes, plain_reps: int = 2) -> dict:
     """Device ms per launch (profiler), the wrapper loop's ms per call (CUDA
-    events around Python calls: host issue cost included) and the plain
+    events around Python calls: the host's launch cost included) and the plain
     version's ms per call."""
     dev, per_call = device_ms(torch, fn, reps, prefixes)
     return dict(ms=dev, device_ms=dev, launches_per_call=per_call,
