@@ -310,7 +310,7 @@ def check_msm_forms(torch, clock_hz, rows, card, gen):
     k, wg, m = plan["ord3"].shape
     p_cap = plan["comp_dig"].shape[1]
     sdig = plan["comp_dig"]
-    print(f"[kernels] MSM plan at 2^16: c {c}, K {k}, Wg {wg}, m {m}, p_cap {p_cap}, "
+    print(f"[kernels] MSM plan at the 2^16 shapes: c {c}, K {k}, Wg {wg}, m {m}, p_cap {p_cap}, "
           f"buckets {m_buckets} = Q {q_chunk} x D {d_chunk}  ({card})")
     # work these inputs need: adds that are not run openings, seg-scan lanes
     # that merge, per step
@@ -491,8 +491,9 @@ def run_path(torch, log_n: int, seed_rng: int, timed_second: bool, card: str):
         + f", verify {t_verify:.3f} s, peak device memory {peak / 2**20:.1f} MiB,"
         f" degeneracy re-runs {fallbacks}  ({card})"
     )
-    print(f"[{tag}] launches during one prove: {json.dumps(prove_counts)}; whole path: {json.dumps(counts)}")
-    print(f"[{tag}] K1 instance launches on the path: {json.dumps(instances)}")
+    print(f"[{tag}] launches during one prove: {json.dumps(prove_counts)}; whole path: "
+          f"{json.dumps(counts)}  ({card})")
+    print(f"[{tag}] K1 per-lane instance launches on the path: {json.dumps(instances)}  ({card})")
     k1_prove = {k: prove_counts[k] for k in K1_FORMS}
     print(f"[{tag}] K1 launches per prove by form: {json.dumps(k1_prove)}, "
           f"total {sum(k1_prove.values())}  ({card})")
@@ -526,11 +527,11 @@ def main(argv=None) -> int:
     if "build" in phases:
         t0 = time.perf_counter()
         log = _build.build_all()
-        print(f"[build] {len(log)} kernels in {time.perf_counter() - t0:.1f} s wall")
+        print(f"[build] {len(log)} kernel sources in {time.perf_counter() - t0:.1f} s wall  ({card})")
         for name, rec in log.items():
             regs = [ln.strip().replace("ptxas info    : ", "") for ln in rec["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln or "Function properties" in ln]
-            print(f"[build] {name}.cu: {rec['seconds']:.1f} s{' (cached)' if rec['cached'] else ''}")
+            print(f"[build] {name}.cu: {rec['seconds']:.1f} s{' (cached)' if rec['cached'] else ''}  ({card})")
             for ln in regs:
                 print(f"[build]   {ln}")
         spills = [ln for rec in log.values() for ln in rec["ptxas"].splitlines()

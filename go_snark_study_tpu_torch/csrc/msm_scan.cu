@@ -26,18 +26,18 @@
 // per MSM.  The complete forms (the re-run engine) write no flag.
 //
 // G2: a pair of neighbouring threads per lane, one Fq2 component each
-// (Fp2S), so a lane's loop state (up to two Jacobian points) and an add
-// fit in registers without spilling; branches that hold a shuffle are
-// taken warp-wide (any_lane), and the tail of the last warp works on a
-// clamped lane and stores nothing.
+// (Fp2S), so a G2 add holds about as many registers per thread as a G1 add;
+// branches that hold a shuffle are taken warp-wide (any_lane), and the tail
+// of the last warp works on a clamped lane and stores nothing.  No instance
+// spills: the reduce forms park their accumulators in shared memory.
 //
-// Bound on the H100: apply and seg at 2^16 (49,152 and 76,800 lanes) are
-// operations-bound (11 / 16 Montgomery products per add, 264 IMADs each),
-// but a launch is a few waves of 128-thread blocks at ~170 registers, so
-// they run on latency and occupancy.  The reduction is a chain of dependent
-// adds in each of 408 (stage 1) or 24 (stage 2) lanes: its time is one
-// lane's add latency times 127 (stage 1) or 50 adds plus 6 doublings
-// (stage 2), whatever the card's throughput.
+// Bound on the H100: the apply form is operations-bound (11 Montgomery
+// products per G1 mixed add, 264 IMADs each); a merge-scan step, where few
+// lanes merge, is bytes-bound.  Both launch a few waves of 128-thread
+// blocks at 160-225 registers, so they run on latency and occupancy.  The
+// reduction is a chain of dependent adds in each of 408 (stage 1) or 24
+// (stage 2) lanes: its time is one lane's add latency times 127 (stage 1)
+// or 50 adds plus 6 doublings (stage 2), whatever the card's throughput.
 
 #include "point.cuh"
 
