@@ -7,21 +7,24 @@
 Phases:
   build    compile the kernel sources of go_snark_study_tpu_torch/csrc with
            nvcc (sm_90a), one process each, all at once; print seconds and
-           ptxas registers and spills per kernel function.
+           ptxas registers and spills per kernel function.  Fails if an
+           instance of K3 has a stack frame or spills.
   kernels  hold each kernel against its plain PyTorch version on the card,
            bit for bit, at the shapes the main path gives it: K2 on Fq and
            Fr; K1's eight per-lane instances and its MSM forms (apply,
            seg-scan, reduce; G1 and G2, incomplete and complete, and a case
-           with planted equal points whose flag must fire); K3; K4.  Each
-           row gives the device time per launch from torch.profiler's device
-           events ("device", the "ms" of the JSON line), the CUDA-event time
-           of a loop of wrapper calls ("wrapper", the host's launch cost included),
-           the plain version's time and the bound.
+           with planted equal points whose flag must fire); K3 both ways at
+           every g on a ragged L and at its call sites on the 2^16 and 2^20
+           paths, with its launch shape; K4.  Each row gives the device
+           time per launch from torch.profiler's device events ("device",
+           the "ms" of the JSON line), the CUDA-event time of a loop of
+           wrapper calls ("wrapper", the host's launch cost included), the
+           plain version's time and the bound.
   main     the port's main path at 2^16 constraints: FastGroth16 setup, two
            proofs (the second timed), verification, and a wrong public that
            must fail.  Every K1 form, K2 and K3 must have launched on it, and
-           K1 at most 80 times in one prove (printed by form); a third prove
-           runs under the profiler.
+           K1 at most 80 times in one prove (printed by form, K3 beside it);
+           a third prove runs under the profiler.
   small    a 2^12-constraint proof (radix-2 NTT): K4 must have launched.
 
 The kernel launch counts are set to 0 just before a path is driven and read
@@ -51,7 +54,10 @@ IMADS_PER_MONT_MUL = 264  # 8 x (16 wide products x 2 + 1): csrc/field.cuh
 LANES_MAIN = 1 << 16  # K2: one H-pipeline product at 2^16
 K1_LANES = 1 << 14  # K1: every instance, with edge-case lanes
 APPLY_LANES = 24 * 2048  # K1: MSM apply step at 2^16 (24 windows x 2048)
-K3_COLS = 4096  # K3: g = 16 leaf of a 2^16 four-step transform
+# K3: the leaves of the four-step transforms (ops/ntt.py _col_fused): at 2^16
+# two (16, 4096) per column pass; at 2^20 two (16, 65536) and one (4, 262144)
+K3_SITES = (("2^16 leaf", 16, 4096), ("2^20 leaf", 16, 65536), ("2^20 leaf", 4, 262144))
+K3_RAGGED = 4097  # every g, with a ragged last block
 K4_LANES = 1 << 11  # K4: one radix-2 stage at 2^12
 # K1's MSM forms at the 2^16 shapes: c = 11 gives 24 windows (one group),
 # m_pad = 67,584 points = K 33 x m 2048, p_cap 3200, 1088 buckets = Q 17 x D 64
@@ -84,6 +90,24 @@ def bound_ms(nbytes: float, imads: float, clock_hz: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+NO_STACK = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+
+
+def ptxas_functions(log: str, name: str) -> dict:
+    """{kernel function whose mangled name holds ``name``: (registers, its
+    stack and spill line)} from ``ptxas -v`` output."""
+    out, fn, props = {}, None, None
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Function properties for" in ln:
+            fn, props = ln.split()[-1], lines[i + 1].strip() if i + 1 < len(lines) else ""
+        elif fn and "Used" in ln and "registers" in ln:
+            if name in fn:
+                out[fn] = (int(ln.split("Used", 1)[1].split()[0]), props)
+            fn = None
+    return out
+
+
 def cuda_ms(torch, fn, reps: int, warm: int = 2) -> float:
     for _ in range(warm):
         fn()
@@ -106,25 +130,28 @@ def device_ms(torch, fn, reps: int, prefixes, warm: int = 2):
     """Device time of the kernels whose names contain one of ``prefixes``,
     read from torch.profiler device events over ``reps`` calls of ``fn``:
     (ms per launch, launches per call).  The wrapper's host work (checks,
-    allocation, ctypes) is not in it, unlike :func:`cuda_ms`."""
+    allocation, ctypes) is not in it, unlike :func:`cuda_ms`.  A profiling
+    session that records no device event at all is run again, up to three
+    sessions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = count = 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CPU and any(k in e.key for k in prefixes):
-            total += _dev_us(e)
-            count += e.count
-    if count == 0:
-        raise RuntimeError(f"no device events for {prefixes}")
-    return total / 1e3 / count, count / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CPU and any(k in e.key for k in prefixes):
+                total += _dev_us(e)
+                count += e.count
+        if count:
+            return total / 1e3 / count, count / reps
+    raise RuntimeError(f"no device events for {prefixes} in three profiling sessions")
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -174,13 +201,11 @@ def check_kernels(torch, clock_hz, rows, card):
     from go_snark_study_tpu_torch.ops import ntt_kernels as nk
     from go_snark_study_tpu_torch.ops import point_add as pa
     from go_snark_study_tpu_torch.ops.limbs import FieldKernels
-    from go_snark_study_tpu_torch.ops.ntt import NTTEngine
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1234)
     top_q, top_r = C.Q >> 224, C.R >> 224
-    k1, k2, k3, k4 = ("point_add_kernel",), ("mont_mul_kernel",), ("small_ntt_kernel",), \
-        ("butterfly_kernel",)
+    k1, k2, k4 = ("point_add_kernel",), ("mont_mul_kernel",), ("butterfly_kernel",)
 
     # K2: Fq and Fr at 2^16 lanes
     for p, top, tag in ((C.Q, top_q, "fq"), (C.R, top_r, "fr")):
@@ -254,22 +279,7 @@ def check_kernels(torch, clock_hz, rows, card):
         say("K1", f"per-lane jadd G{arity} {n} lanes (fixed-base), bound {bnd:.6f} ms ({by})", t, card)
     rows["K1"] = rows["K1_sites"][0]
     check_msm_forms(torch, clock_hz, rows, card, gen)
-
-    # K3: g = 16, forward and inverse, L = 4096
-    Kr = FieldKernels(C.R, DEVICE)
-    ntt = NTTEngine(Kr)
-    L = K3_COLS
-    x = rand_fq(torch, gen, 16 * L, top_r).reshape(8, 16, L).contiguous()
-    for inverse in (False, True):
-        tw = ntt.small_table(16, inverse)
-        got, want = nk.small_ntt(x, tw), nk.small_ntt_plain(x, tw)
-        err = max_abs_err(torch, got, want)
-        assert torch.equal(got, want), f"K3 inverse={inverse}: kernel != plain"
-        t = timed(torch, lambda: nk.small_ntt(x, tw), lambda: nk.small_ntt_plain(x, tw), 200, k3, 5)
-        if not inverse:
-            bnd, by = bound_ms(2 * 16 * 32 * L, 17 * IMADS_PER_MONT_MUL * L, clock_hz)
-            rows["K3"] = dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by, shape=f"(8, 16, {L})")
-        say("K3", f"small_ntt g=16 L={L} {'inverse' if inverse else 'forward'}", t, card)
+    check_k3(torch, clock_hz, rows, card, gen)
 
     # K4: 2^11 lanes (one stage of the 2^12 radix-2 transform)
     n = K4_LANES
@@ -281,6 +291,44 @@ def check_kernels(torch, clock_hz, rows, card):
     bnd, by = bound_ms(5 * 32 * n, IMADS_PER_MONT_MUL * n, clock_hz)
     rows["K4"] = dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by, shape=f"(8, {n})")
     say("K4", f"butterfly {n} lanes", t, card)
+
+
+def check_k3(torch, clock_hz, rows, card, gen):
+    """K3 against its plain version, forward and inverse, bit for bit: every
+    g on a ragged L, then each call site of the 2^16 and 2^20 paths, where
+    the forward transform is timed beside its bound and launch shape."""
+    from go_snark_study_tpu_torch.bn128 import constants as C
+    from go_snark_study_tpu_torch.ops import ntt_kernels as nk
+    from go_snark_study_tpu_torch.ops.limbs import FieldKernels
+    from go_snark_study_tpu_torch.ops.ntt import NTTEngine
+
+    ntt = NTTEngine(FieldKernels(C.R, DEVICE))
+
+    def check(g, L):
+        x = rand_fq(torch, gen, g * L, C.R >> 224).reshape(8, g, L).contiguous()
+        err = 0
+        for inverse in (False, True):
+            tw = ntt.small_table(g, inverse)
+            got, want = nk.small_ntt(x, tw), nk.small_ntt_plain(x, tw)
+            err = max(err, max_abs_err(torch, got, want))
+            assert torch.equal(got, want), f"K3 g={g} L={L} inverse={inverse}: kernel != plain"
+        return x, err
+
+    for g in (2, 4, 8, 16):
+        check(g, K3_RAGGED)
+        print(f"[kernels] K3 small_ntt g={g} L={K3_RAGGED} (ragged): forward and inverse match  ({card})")
+    for site, g, L in K3_SITES:
+        x, err = check(g, L)
+        tw = ntt.small_table(g, False)
+        t = timed(torch, lambda: nk.small_ntt(x, tw), lambda: nk.small_ntt_plain(x, tw), 200, ("small_ntt_kernel",))
+        launch = nk.small_ntt_shape(g, L)
+        products = sum(g // 2 - (g >> s) for s in range(1, g.bit_length()))  # j != 0 butterflies
+        bnd, by = bound_ms(2 * g * 32 * L + 16 * g, products * IMADS_PER_MONT_MUL * L, clock_hz)
+        rows.setdefault("K3_sites", []).append(dict(
+            t, site=site, shape=f"(8, {g}, {L})", launch=launch, max_abs_err=err, bound_ms=bnd, bound_by=by))
+        say("K3", f"small_ntt {site} g={g} L={L} (both ways match; forward timed), bound {bnd:.6f} ms ({by}), "
+            f"{launch['blocks']} blocks x {launch['threads']} threads, {launch['cols']} columns a block", t, card)
+    rows["K3"] = rows["K3_sites"][0]
 
 
 def check_msm_forms(torch, clock_hz, rows, card, gen):
@@ -497,6 +545,7 @@ def run_path(torch, log_n: int, seed_rng: int, timed_second: bool, card: str):
     k1_prove = {k: prove_counts[k] for k in K1_FORMS}
     print(f"[{tag}] K1 launches per prove by form: {json.dumps(k1_prove)}, "
           f"total {sum(k1_prove.values())}  ({card})")
+    print(f"[{tag}] K3 launches per prove: {prove_counts['K3']}  ({card})")
     if timed_second:
         profile_prove(torch, fast, r1cs, setup.pk, rng, tag, card)
     return dict(setup_s=t_setup, prove_s=t_prove2 or t_prove1, counts=counts, prove_counts=prove_counts,
@@ -537,6 +586,14 @@ def main(argv=None) -> int:
         spills = [ln for rec in log.values() for ln in rec["ptxas"].splitlines()
                   if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill stores")]
         print(f"[build] functions with a stack frame or spills: {len(spills)}  ({card})")
+        if log["small_ntt"]["cached"]:
+            print(f"[build] small_ntt.cu was cached: K3's ptxas lines are not available  ({card})")
+        else:
+            k3 = ptxas_functions(log["small_ntt"]["ptxas"], "small_ntt_kernel")
+            for fn, (regs, props) in k3.items():
+                print(f"[build] K3 {fn}: {regs} registers; {props}  ({card})")
+            bad = [fn for fn, (_, props) in k3.items() if props != NO_STACK]
+            assert len(k3) == 4 and not bad, f"K3 instances with a stack frame or spills: {bad} of {list(k3)}"
 
     rows = {}
     if "kernels" in phases:
@@ -578,7 +635,7 @@ def main(argv=None) -> int:
             "shape": row.get("shape"),
             "path": f"2^{MAIN_LOG if path == 'main' else SMALL_LOG} proof",
         })
-    for key in ("K1_instances", "K1_sites"):
+    for key in ("K1_instances", "K1_sites", "K3_sites"):
         if key in rows:
             print(json.dumps({key.lower(): rows[key]}))
     print(f"[card] {card}")

@@ -4,9 +4,15 @@ K3, :func:`small_ntt` (``csrc/small_ntt.cu``), replaces
 ``go_snark_study_tpu/ops/pallas_ntt.py::_small_ntt_kernel`` (:50-81, built
 by ``make_pallas_small_ntt`` :84-129): a complete g-point DIT NTT
 (2 <= g <= 16) along axis 1 of (8, g, L) Montgomery arrays.  Rows are read
-bit-reversed, every stage runs in registers, the j = 0 twiddle is skipped,
-and the output is in natural order.  The stage twiddles are the g/2 powers
-w_g^k, a small table argument that every thread reads at the same address.
+bit-reversed, the j = 0 twiddle is skipped, and the output is in natural
+order.  The stage twiddles are the g/2 powers w_g^k, a small table
+argument.  A block of 256 threads owns 512/g columns and each thread runs
+one butterfly of one column at every stage: the first stage reads its two
+rows from device memory, the last writes its two rows back, and the
+stages between go through a 16 KB shared-memory tile with a barrier after
+each.  Every device-memory access of a warp is a full 128-byte line, and
+the table is copied to shared memory (:func:`small_ntt_shape` gives the
+launch).
 
 K4, :func:`butterfly` (``csrc/butterfly.cu``), replaces
 ``go_snark_study_tpu/ops/pallas_ntt.py::_butterfly_kernel`` (:40-47, built
@@ -15,9 +21,10 @@ lo = e + o·tw, hi = e − o·tw, lane by lane.
 
 What bounds them on the H100: bytes.  K3 with g = 16 reads and writes
 16×32 bytes per column and does 17 Montgomery products (≈ 4,500 IMADs);
-K4 moves 5×32 bytes per lane for one product.  Both are one lane (column)
-per thread with the limbs in registers, so each element crosses device
-memory once per kernel, as the TPU kernels kept theirs in VMEM.
+K4 moves 5×32 bytes per lane for one product.  K4 is one lane per thread
+with the limbs in registers; K3 keeps its stages in shared memory.  So
+each element crosses device memory once per kernel, as the TPU kernels
+kept theirs in VMEM.
 
 Beside each: the plain PyTorch version (:func:`small_ntt_plain`,
 :func:`butterfly_plain`) and the launch count (``SMALL_NTT.launches``,
@@ -40,6 +47,7 @@ __all__ = [
     "BUTTERFLY",
     "small_ntt",
     "small_ntt_plain",
+    "small_ntt_shape",
     "butterfly",
     "butterfly_plain",
     "bitrev",
@@ -90,6 +98,17 @@ def small_ntt(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
             g, x.data_ptr(), out.data_ptr(), tw.data_ptr(), lanes, _build.stream_ptr(x)
         )
     return out
+
+
+def small_ntt_shape(g: int, lanes: int) -> dict:
+    """K3's launch for (g, L) as ``small_ntt.cu`` computes it: columns per
+    block, threads per block, blocks.  Builds the kernel library."""
+    out = (ctypes.c_longlong * 3)()
+    fn = _build._lib(SMALL_NTT.source).gs_small_ntt_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    if fn(g, lanes, out) != 0:
+        raise ValueError(f"no K3 launch for g={g}")
+    return dict(cols=out[0], threads=out[1], blocks=out[2])
 
 
 def small_ntt_plain(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:

@@ -57,9 +57,11 @@ def test_kernels_match_plain_on_card(cuda_device):
             assert all(torch.equal(x, y) for x, y in zip(pa._leaves(got, arity), pa._leaves(want, arity)))
     ntt = NTTEngine(FieldKernels(C.R, cuda_device))
     for g in (2, 4, 8, 16):
-        x = rand(g * 300, C.R).reshape(8, g, 300).contiguous()
-        tw = ntt.small_table(g, False)
-        assert torch.equal(nk.small_ntt(x, tw), nk.small_ntt_plain(x, tw))
+        for lanes in (33, 300, 4097):  # ragged last blocks
+            x = rand(g * lanes, C.R).reshape(8, g, lanes).contiguous()
+            for inverse in (False, True):
+                tw = ntt.small_table(g, inverse)
+                assert torch.equal(nk.small_ntt(x, tw), nk.small_ntt_plain(x, tw)), (g, lanes, inverse)
     e, o, t = rand(777, C.R), rand(777, C.R), rand(777, C.R)
     assert all(torch.equal(x, y) for x, y in zip(nk.butterfly(e, o, t), nk.butterfly_plain(e, o, t)))
 

@@ -32,7 +32,7 @@ def engines():
     return JaxNTTEngine(jax_fr_kernels()), NTTEngine(FieldKernels(C.R, "cpu"))
 
 
-@pytest.mark.parametrize("g", [2, 4, 16])
+@pytest.mark.parametrize("g", [2, 4, 8, 16])
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
 def test_plain_small_ntt_matches_jax_col_transform(engines, g, inverse):
     jntt, ntt = engines
@@ -44,6 +44,29 @@ def test_plain_small_ntt_matches_jax_col_transform(engines, g, inverse):
     )
     got = nk.small_ntt(x.contiguous(), ntt.small_table(g, inverse))
     np.testing.assert_array_equal(port_to_jax(got), np.asarray(want))
+
+
+COL_CASES = [(n_len, inverse) for n_len in (128, 256) for inverse in (False, True)]
+
+
+@pytest.fixture(scope="module")
+def col_fused_cases(engines):
+    """Inputs (8, n_len, 8) and the JAX engine's ``_col_transform`` of each,
+    all four cases under one jit (its XLA compile is the cost)."""
+    jntt, ntt = engines
+    xs = {n_len: ntt.K.pack(_rand_fr(n_len, n_len * 8)).reshape(8, n_len, 8) for n_len, _ in COL_CASES}
+    args = {n_len: jax.numpy.asarray(port_to_jax(x)) for n_len, x in xs.items()}
+    want = jax.jit(lambda a: [jntt._col_transform(a[n], n, inv) for n, inv in COL_CASES])(args)
+    return {case: (xs[case[0]], np.asarray(w)) for case, w in zip(COL_CASES, want)}
+
+
+@pytest.mark.parametrize("n_len, inverse", COL_CASES, ids=[f"{n}-{'inv' if i else 'fwd'}" for n, i in COL_CASES])
+def test_col_fused_matches_jax_col_transform(engines, col_fused_cases, n_len, inverse):
+    """The recursive radix-16 column transform (K3 leaves at g = 16 and 8 or
+    16, the inner twiddle product and transpose) over 8 lanes."""
+    _, ntt = engines
+    x, want = col_fused_cases[n_len, inverse]
+    np.testing.assert_array_equal(port_to_jax(ntt._col_fused(x, n_len, inverse)), want)
 
 
 def test_plain_butterfly_matches_jax(engines):
