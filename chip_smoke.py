@@ -8,14 +8,19 @@ Phases:
   build    compile the kernel sources of go_snark_study_tpu_torch/csrc with
            nvcc (sm_90a), one process each, all at once; print seconds and
            ptxas registers and spills per kernel function.  Fails if an
-           instance of K3 has a stack frame or spills.
+           instance of K3, or K4's whole-transform kernel, has a stack frame
+           or spills.
   kernels  hold each kernel against its plain PyTorch version on the card,
            bit for bit, at the shapes the main path gives it: K2 on Fq and
            Fr; K1's eight per-lane instances and its MSM forms (apply,
            seg-scan, reduce; G1 and G2, incomplete and complete, and a case
            with planted equal points whose flag must fire); K3 both ways at
            every g on a ragged L and at its call sites on the 2^16 and 2^20
-           paths, with its launch shape; K4.  Each row gives the device
+           paths, with its launch shape; K4's whole-transform form both ways
+           at every n from 2 to 2^13 and at 3 rows of 2^12 and 2^13, timed
+           at 2^12 and 2^13 with its cluster launch beside the stage path
+           it replaced (the stage loop over K4's stage form, on the card);
+           K4's stage form.  Each row gives the device
            time per launch from torch.profiler's device events ("device",
            the "ms" of the JSON line), the CUDA-event time of a loop of
            wrapper calls ("wrapper", the host's launch cost included), the
@@ -25,7 +30,11 @@ Phases:
            must fail.  Every K1 form, K2 and K3 must have launched on it, and
            K1 at most 80 times in one prove (printed by form, K3 beside it);
            a third prove runs under the profiler.
-  small    a 2^12-constraint proof (radix-2 NTT): K4 must have launched.
+  small    the 2^12-constraint path (radix-2 NTT), as main: setup, two
+           proofs (the second timed), verification, a profiled third prove.
+           K4's whole-transform form must launch exactly 7 times in a prove
+           and its stage form never; then the same proofs through the stage
+           path, in turns with the kernel path, timed and profiled.
 
 The kernel launch counts are set to 0 just before a path is driven and read
 just after.  The second-to-last line is one JSON object with a row per
@@ -58,7 +67,10 @@ APPLY_LANES = 24 * 2048  # K1: MSM apply step at 2^16 (24 windows x 2048)
 # two (16, 4096) per column pass; at 2^20 two (16, 65536) and one (4, 262144)
 K3_SITES = (("2^16 leaf", 16, 4096), ("2^20 leaf", 16, 65536), ("2^20 leaf", 4, 262144))
 K3_RAGGED = 4097  # every g, with a ragged last block
-K4_LANES = 1 << 11  # K4: one radix-2 stage at 2^12
+K4_LANES = 1 << 11  # K4 stage form: one radix-2 stage at 2^12
+K4_MAX_LOG = 13  # K4 whole-transform form: every n from 2 to 2^13
+K4_SITES = (12, 13)  # timed: the 2^12 path's transforms, and the largest
+K4_PER_PROVE = 7  # radix-2 transforms per prove below 2^14 (groth16_fast._h_pipeline)
 # K1's MSM forms at the 2^16 shapes: c = 11 gives 24 windows (one group),
 # m_pad = 67,584 points = K 33 x m 2048, p_cap 3200, 1088 buckets = Q 17 x D 64
 MSM_C, MSM_POINTS = 11, 67584
@@ -281,16 +293,95 @@ def check_kernels(torch, clock_hz, rows, card):
     check_msm_forms(torch, clock_hz, rows, card, gen)
     check_k3(torch, clock_hz, rows, card, gen)
 
-    # K4: 2^11 lanes (one stage of the 2^12 radix-2 transform)
+    # K4's stage form: 2^11 lanes (one stage of the 2^12 radix-2 transform)
     n = K4_LANES
     e, o, tw4 = (rand_fq(torch, gen, n, top_r) for _ in range(3))
     got, want = nk.butterfly(e, o, tw4), nk.butterfly_plain(e, o, tw4)
     err = max_abs_err(torch, got, want)
-    assert all(torch.equal(a, b) for a, b in zip(got, want)), "K4: kernel != plain"
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), "K4 stage form: kernel != plain"
     t = timed(torch, lambda: nk.butterfly(e, o, tw4), lambda: nk.butterfly_plain(e, o, tw4), 500, k4, 10)
     bnd, by = bound_ms(5 * 32 * n, IMADS_PER_MONT_MUL * n, clock_hz)
-    rows["K4"] = dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by, shape=f"(8, {n})")
-    say("K4", f"butterfly {n} lanes", t, card)
+    rows["K4 stage"] = dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by, shape=f"(8, {n})")
+    say("K4", f"stage form (butterfly) {n} lanes", t, card)
+    check_k4(torch, clock_hz, rows, card, gen)
+
+
+def radix2_products(n: int) -> int:
+    """Montgomery products of an n-point radix-2 DIT transform, j = 0 skipped."""
+    return sum(n // 2 - n // (1 << s) for s in range(1, n.bit_length()))
+
+
+def check_k4(torch, clock_hz, rows, card, gen):
+    """K4's whole-transform form against its plain version, forward and
+    inverse, bit for bit: every n from 2 to 2^13 (each timed: device ms by
+    n shows the cost of a stage and of a crossing stage), and 3 rows at
+    2^12 and 2^13.  At 2^12 and 2^13 (one row, forward) it is timed beside
+    its bound, the bound on the C SMs of one cluster and its launch shape;
+    beside it the stage path it replaced: the stage loop (nk.radix2_stages)
+    over K4's stage form on the card, its stage-kernel device time summed
+    over a transform, all its device time (the glue included) and its
+    wrapper time per transform."""
+    from go_snark_study_tpu_torch.bn128 import constants as C
+    from go_snark_study_tpu_torch.ops import ntt_kernels as nk
+    from go_snark_study_tpu_torch.ops.limbs import FieldKernels
+    from go_snark_study_tpu_torch.ops.ntt import NTTEngine
+
+    ntt = NTTEngine(FieldKernels(C.R, DEVICE))
+
+    def check(n, nrows):
+        x = rand_fq(torch, gen, n * nrows, C.R >> 224)
+        err = 0
+        for inverse in (False, True):
+            T = ntt.master(n, inverse)
+            got, want = nk.radix2_ntt(x, T, n), nk.radix2_ntt_plain(x, T, n)
+            err = max(err, max_abs_err(torch, got, want))
+            assert torch.equal(got, want), f"K4 radix2_ntt n={n} rows={nrows} inverse={inverse}: kernel != plain"
+        return x, err
+
+    by_n = {}
+    for log_n in range(1, K4_MAX_LOG + 1):
+        n = 1 << log_n
+        x, _ = check(n, 1)
+        T = ntt.master(n, False)
+        ms, _ = device_ms(torch, lambda: nk.radix2_ntt(x, T), 50, ("radix2_ntt_kernel",))
+        by_n[n] = dict(device_ms=ms, cluster=nk.radix2_ntt_shape(n, 1)["cluster"])
+    rows["K4_by_n"] = by_n
+    print(f"[kernels] K4 radix2_ntt n=2..2^{K4_MAX_LOG}, one row: forward and inverse match; device ms "
+          f"(cluster size) by n: " + ", ".join(f"2^{n.bit_length() - 1} {r['device_ms']:.5f} ({r['cluster']})"
+                                               for n, r in by_n.items()) + f"  ({card})")
+    for log_n in K4_SITES:
+        check(1 << log_n, 3)
+        print(f"[kernels] K4 radix2_ntt n=2^{log_n}, 3 rows: forward and inverse match  ({card})")
+    for log_n in K4_SITES:
+        n = 1 << log_n
+        x, err = check(n, 1)
+        T = ntt.master(n, False)
+        launch = nk.radix2_ntt_shape(n, 1)
+        t = timed(torch, lambda: nk.radix2_ntt(x, T), lambda: nk.radix2_ntt_plain(x, T), 200,
+                  ("radix2_ntt_kernel",))
+        imads = radix2_products(n) * IMADS_PER_MONT_MUL
+        bnd, by = bound_ms(2 * 32 * n + 32 * (n // 2), imads, clock_hz)
+        cluster_ms = imads / (launch["cluster"] * IMAD_PER_CLK_PER_SM * clock_hz) * 1e3
+        stage = lambda: nk.radix2_stages(x, T, None, nk.butterfly)
+        assert torch.equal(stage(), nk.radix2_ntt(x, T)), f"K4 stage path n={n}: != whole-transform form"
+        st_ms, st_launches = device_ms(torch, stage, 50, ("butterfly_kernel",))
+        all_ms, all_launches = device_ms(torch, stage, 50, ("",))
+        st_wrapper = cuda_ms(torch, stage, 50)
+        stage_path = dict(device_ms=st_ms * st_launches, stage_launches=st_launches,
+                          device_ms_all=all_ms * all_launches, device_launches=all_launches,
+                          wrapper_ms=st_wrapper)
+        rows.setdefault("K4_sites", []).append(dict(
+            t, n=n, shape=f"(8, {n})", launch=launch, max_abs_err=err, bound_ms=bnd, bound_by=by,
+            cluster_bound_ms=cluster_ms, products=radix2_products(n), stage_path=stage_path))
+        say("K4", f"radix2_ntt n=2^{log_n} (both ways match; forward timed), bound {bnd:.6f} ms ({by}), "
+            f"on the cluster's {launch['cluster']} SMs {cluster_ms:.6f} ms; {launch['ctas']} CTAs in clusters "
+            f"of {launch['cluster']} x {launch['threads']} threads, {launch['shared_bytes']} shared bytes a CTA",
+            t, card)
+        print(f"[kernels] K4 stage path n=2^{log_n} (stage loop over the stage form): stage kernel device "
+              f"{stage_path['device_ms']:.5f} ms over {st_launches:g} launches, all device "
+              f"{stage_path['device_ms_all']:.5f} ms over {all_launches:g} launches, wrapper "
+              f"{st_wrapper:.4f} ms per transform  ({card})")
+    rows["K4"] = rows["K4_sites"][0]
 
 
 def check_k3(torch, clock_hz, rows, card, gen):
@@ -438,11 +529,11 @@ K1_FORMS = ("K1", "K1 apply", "K1 seg-scan", "K1 reduce")
 def kernel_objects():
     from go_snark_study_tpu_torch.ops.mont_mul import MONT_MUL
     from go_snark_study_tpu_torch.ops.msm_kernels import APPLY, REDUCE, SEG_SCAN
-    from go_snark_study_tpu_torch.ops.ntt_kernels import BUTTERFLY, SMALL_NTT
+    from go_snark_study_tpu_torch.ops.ntt_kernels import BUTTERFLY, RADIX2_NTT, SMALL_NTT
     from go_snark_study_tpu_torch.ops.point_add import POINT_ADD
 
     return {"K1": POINT_ADD, "K1 apply": APPLY, "K1 seg-scan": SEG_SCAN, "K1 reduce": REDUCE,
-            "K2": MONT_MUL, "K3": SMALL_NTT, "K4": BUTTERFLY}
+            "K2": MONT_MUL, "K3": SMALL_NTT, "K4": RADIX2_NTT, "K4 stage": BUTTERFLY}
 
 
 def reset_counts():
@@ -475,7 +566,8 @@ def profile_prove(torch, fast, r1cs, pk, rng, tag: str, card: str):
     # device-side events only: a CPU op's device time repeats its kernels'
     events = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU and dev(e) > 0]
     busy_us = sum(dev(e) for e in events)
-    names = ("point_add_kernel", "msm_", "mont_mul_kernel", "small_ntt_kernel", "butterfly_kernel")
+    names = ("point_add_kernel", "msm_", "mont_mul_kernel", "small_ntt_kernel", "radix2_ntt_kernel",
+             "butterfly_kernel")
     ours = sum(dev(e) for e in events if any(k in e.key for k in names))
     k1 = {}
     for e in events:
@@ -545,11 +637,50 @@ def run_path(torch, log_n: int, seed_rng: int, timed_second: bool, card: str):
     k1_prove = {k: prove_counts[k] for k in K1_FORMS}
     print(f"[{tag}] K1 launches per prove by form: {json.dumps(k1_prove)}, "
           f"total {sum(k1_prove.values())}  ({card})")
-    print(f"[{tag}] K3 launches per prove: {prove_counts['K3']}  ({card})")
-    if timed_second:
-        profile_prove(torch, fast, r1cs, setup.pk, rng, tag, card)
+    print(f"[{tag}] K3 launches per prove: {prove_counts['K3']}; K4 whole-transform {prove_counts['K4']}, "
+          f"K4 stage form {prove_counts['K4 stage']}  ({card})")
+    prof = profile_prove(torch, fast, r1cs, setup.pk, rng, tag, card) if timed_second else None
     return dict(setup_s=t_setup, prove_s=t_prove2 or t_prove1, counts=counts, prove_counts=prove_counts,
-                peak_bytes=peak, fallbacks=fallbacks)
+                peak_bytes=peak, fallbacks=fallbacks, profile=prof, fast=fast, r1cs=r1cs, setup=setup, rng=rng)
+
+
+def compare_stage_path(torch, path: dict, card: str):
+    """The 2^12 proofs again through the stage path that K4's whole-transform
+    form replaced (NTTEngine._transform as the stage loop over K4's stage
+    form, on the card): proves timed in turns, stage, kernel, kernel, stage,
+    then a profiled stage-path prove; the stage-path proof must verify."""
+    from go_snark_study_tpu_torch.models.groth16 import verify_proof
+    from go_snark_study_tpu_torch.ops import ntt_kernels as nk
+
+    fast, r1cs, pk, rng = path["fast"], path["r1cs"], path["setup"].pk, path["rng"]
+    tag = f"2^{SMALL_LOG} stage path"
+
+    def use(form):
+        if form == "stage":
+            fast.ntt._transform = lambda x, T, length=None: nk.radix2_stages(x, T, length, nk.butterfly)
+        else:
+            fast.ntt.__dict__.pop("_transform", None)
+
+    times = {"stage": [], "kernel": []}
+    for form in ("stage", "kernel", "kernel", "stage"):
+        use(form)
+        reset_counts()
+        t0 = time.perf_counter()
+        proof = fast.prove(r1cs, pk, rng=rng)
+        torch.cuda.synchronize()
+        times[form].append(time.perf_counter() - t0)
+        counts = read_counts()
+        want = (0, K4_PER_PROVE * SMALL_LOG) if form == "stage" else (K4_PER_PROVE, 0)
+        assert (counts["K4"], counts["K4 stage"]) == want, f"{form} path: K4 launches {counts}"
+        if form == "stage":
+            publics = r1cs.witness[1 : r1cs.n_public + 1]
+            assert verify_proof(path["setup"].vk, proof, publics), f"{tag}: proof does not verify"
+    print(f"[{tag}] prove s in turns (stage, kernel, kernel, stage): stage {times['stage']}, "
+          f"kernel {times['kernel']}; stage form launches per prove {K4_PER_PROVE * SMALL_LOG}  ({card})")
+    use("stage")
+    prof = profile_prove(torch, fast, r1cs, pk, rng, tag, card)
+    use("kernel")
+    return dict(prove_s=times, profile=prof)
 
 
 def main(argv=None) -> int:
@@ -594,6 +725,14 @@ def main(argv=None) -> int:
                 print(f"[build] K3 {fn}: {regs} registers; {props}  ({card})")
             bad = [fn for fn, (_, props) in k3.items() if props != NO_STACK]
             assert len(k3) == 4 and not bad, f"K3 instances with a stack frame or spills: {bad} of {list(k3)}"
+        if log["butterfly"]["cached"]:
+            print(f"[build] butterfly.cu was cached: K4's ptxas lines are not available  ({card})")
+        else:
+            k4 = ptxas_functions(log["butterfly"]["ptxas"], "radix2_ntt_kernel")
+            for fn, (regs, props) in k4.items():
+                print(f"[build] K4 whole-transform {fn}: {regs} registers; {props}  ({card})")
+            bad = [fn for fn, (_, props) in k4.items() if props != NO_STACK]
+            assert len(k4) == 1 and not bad, f"K4 whole-transform kernel with a stack frame or spills: {list(k4)}"
 
     rows = {}
     if "kernels" in phases:
@@ -608,14 +747,17 @@ def main(argv=None) -> int:
         k1_per_prove = sum(main_path["prove_counts"][k] for k in K1_FORMS)
         assert k1_per_prove <= 80, f"K1 launched {k1_per_prove} times in one 2^{MAIN_LOG} prove"
     if "small" in phases:
-        paths["small"] = run_path(torch, SMALL_LOG, 7, False, card)
-        assert paths["small"]["counts"]["K4"] > 0, f"K4 not launched on the 2^{SMALL_LOG} path"
+        small = paths["small"] = run_path(torch, SMALL_LOG, 7, True, card)
+        assert small["prove_counts"]["K4"] == K4_PER_PROVE, \
+            f"K4 whole-transform launched {small['prove_counts']['K4']} times in one 2^{SMALL_LOG} prove"
+        assert small["counts"]["K4 stage"] == 0, f"K4 stage form launched on the 2^{SMALL_LOG} path"
+        rows["small_vs_stage_path"] = compare_stage_path(torch, small, card)
 
     kernels = []
     objs = kernel_objects()
     for name, obj in objs.items():
         row = rows.get(name, {})
-        path = "small" if name == "K4" else "main"
+        path = "small" if name.startswith("K4") else "main"
         launches = paths.get(path, {}).get("counts", {}).get(name)
         kernels.append({
             "name": obj.name,
@@ -635,7 +777,7 @@ def main(argv=None) -> int:
             "shape": row.get("shape"),
             "path": f"2^{MAIN_LOG if path == 'main' else SMALL_LOG} proof",
         })
-    for key in ("K1_instances", "K1_sites", "K3_sites"):
+    for key in ("K1_instances", "K1_sites", "K3_sites", "K4_sites", "K4_by_n", "small_vs_stage_path"):
         if key in rows:
             print(json.dumps({key.lower(): rows[key]}))
     print(f"[card] {card}")

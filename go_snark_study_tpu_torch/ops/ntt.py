@@ -4,8 +4,9 @@ Mirrors ``go_snark_study_tpu/ops/ntt.py`` (``NTTEngine``).  Fr has 2-adicity
 28, so power-of-two domains up to 2^28 are supported.
 
   * Below ``FOURSTEP_MIN`` = 2^14 a transform is radix-2 decimation in
-    time: a bit-reversal gather, then one stage per bit, each stage one
-    launch of K4 (:func:`.ntt_kernels.butterfly`) over all n/2 pairs.
+    time, all of it one launch of K4's whole-transform form
+    (:func:`.ntt_kernels.radix2_ntt`): a thread-block cluster per row, the
+    bit reversal and every stage inside the kernel.
   * From 2^14 up it is the four-step form: column NTTs, a twiddle product
     (K2), a transpose, column NTTs.  Every column transform is the
     recursive radix-16 ``_col_fused``, whose leaves are K3
@@ -26,7 +27,7 @@ import torch
 
 from ..bn128 import constants as C
 from .limbs import LIMBS, FieldKernels
-from .ntt_kernels import butterfly, small_ntt
+from .ntt_kernels import radix2_ntt, small_ntt
 
 __all__ = ["NTTEngine"]
 
@@ -73,46 +74,13 @@ class NTTEngine:
         return self._cached(("master", n, inverse), make)
 
     # ------------------------------------------------------------------
-    def _bitrev_gather_idx(self, n_t: int, total: int) -> torch.Tensor:
-        """Bit-reversal indices for row-batched length-n_t transforms over
-        ``total`` lanes (rows contiguous)."""
-
-        def make():
-            k = n_t.bit_length() - 1
-            g = torch.arange(total, device=self.K.device)
-            pos = g & (n_t - 1)
-            rev = torch.zeros_like(pos)
-            for b in range(k):
-                rev = rev | (((pos >> b) & 1) << (k - 1 - b))
-            return g - pos + rev
-
-        return self._cached(("bitrev", n_t, total), make)
-
     def _transform(self, x: torch.Tensor, T: torch.Tensor, length: int | None = None):
         """x: (8, total) Montgomery limbs -> transformed, natural order per
         row.  ``T``: master twiddles for the per-row length; ``length``:
         per-transform length for row-batched use."""
-        total = x.shape[1]
-        n_t = length or total
-        k = n_t.bit_length() - 1
-        if k == 0:
+        if (length or x.shape[1]) == 1:
             return x
-        x = x.index_select(1, self._bitrev_gather_idx(n_t, total))
-        half_iota = torch.arange(total // 2, device=x.device)
-        for s in range(1, k + 1):
-            m = 1 << s
-            half = m // 2
-            stride = n_t // m
-            xr = x.reshape(LIMBS, total // m, m)
-            even = xr[:, :, :half].reshape(LIMBS, total // 2).contiguous()
-            odd = xr[:, :, half:].reshape(LIMBS, total // 2).contiguous()
-            tw = T.index_select(1, (half_iota & (half - 1)) * stride)
-            lo, hi = butterfly(even, odd, tw)
-            x = torch.cat(
-                [lo.reshape(LIMBS, total // m, half), hi.reshape(LIMBS, total // m, half)],
-                dim=2,
-            ).reshape(LIMBS, total)
-        return x
+        return radix2_ntt(x, T, length)
 
     # ------------------------------------------------------------------
     # four-step path

@@ -64,6 +64,12 @@ def test_kernels_match_plain_on_card(cuda_device):
                 assert torch.equal(nk.small_ntt(x, tw), nk.small_ntt_plain(x, tw)), (g, lanes, inverse)
     e, o, t = rand(777, C.R), rand(777, C.R), rand(777, C.R)
     assert all(torch.equal(x, y) for x, y in zip(nk.butterfly(e, o, t), nk.butterfly_plain(e, o, t)))
+    for n in (2, 64, 4096, 8192):
+        for rows in (1, 3):
+            x = rand(n * rows, C.R)
+            for inverse in (False, True):
+                T = ntt.master(n, inverse)
+                assert torch.equal(nk.radix2_ntt(x, T, n), nk.radix2_ntt_plain(x, T, n)), (n, rows, inverse)
 
 
 @pytest.mark.gpu

@@ -1,6 +1,7 @@
-"""The port's NTT kernels (plain versions of K3 and K4) and ``NTTEngine``
-held against the JAX package's ``NTTEngine``, bit for bit, at <= 2^10
-lanes; the port's four-step path against its own radix-2 path at 2^14.
+"""The port's NTT kernels (plain versions of K3 and of K4's two forms) and
+``NTTEngine`` held against the JAX package's ``NTTEngine``, bit for bit, at
+<= 2^10 lanes; the port's four-step path against the plain radix-2 stage
+loop at 2^14.
 """
 
 import jax
@@ -78,6 +79,47 @@ def test_plain_butterfly_matches_jax(engines):
     np.testing.assert_array_equal(port_to_jax(hi), np.asarray(jhi))
 
 
+RADIX2_CASES = [(n, rows, inverse) for n, rows in ((2, 5), (16, 4), (256, 3), (1024, 1))
+                for inverse in (False, True)]
+
+
+@pytest.fixture(scope="module")
+def radix2_cases(engines):
+    """Inputs (8, rows*n) and the JAX engine's row-batched
+    ``_transform_batched`` of each, all eight cases under one jit."""
+    jntt, ntt = engines
+    xs = {(n, rows): ntt.K.pack(_rand_fr(n + rows, n * rows)) for n, rows, _ in RADIX2_CASES}
+    args = {f"{n}x{rows}": jax.numpy.asarray(port_to_jax(x)) for (n, rows), x in xs.items()}
+    want = jax.jit(lambda a: [jntt._transform_batched(a[f"{n}x{rows}"], n, rows, inv)
+                              for n, rows, inv in RADIX2_CASES])(args)
+    return {case: (xs[case[:2]], np.asarray(w)) for case, w in zip(RADIX2_CASES, want)}
+
+
+@pytest.mark.parametrize("n, rows, inverse", RADIX2_CASES,
+                         ids=[f"{n}x{r}-{'inv' if i else 'fwd'}" for n, r, i in RADIX2_CASES])
+def test_radix2_ntt_matches_jax_transform_batched(engines, radix2_cases, n, rows, inverse):
+    """K4's whole-transform form (its plain version on the CPU), row-batched."""
+    _, ntt = engines
+    x, want = radix2_cases[n, rows, inverse]
+    got = nk.radix2_ntt(x, ntt.master(n, inverse), length=n)
+    np.testing.assert_array_equal(port_to_jax(got), want)
+
+
+def _zeros(*shape, device="cpu"):
+    return torch.zeros(shape, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("x, T, length", [
+    (_zeros(8, 12), _zeros(8, 6), None),  # n not a power of two
+    (_zeros(8, 1 << 14), _zeros(8, 1 << 13), None),  # n above 2^13
+    (_zeros(8, 64), _zeros(8, 16), 16),  # table of 16 entries for n = 16
+    (_zeros(8, 16), _zeros(8, 8, device="meta"), None),  # mixed devices
+], ids=["not-pow2", "above-2^13", "table-length", "mixed-devices"])
+def test_radix2_ntt_checks_its_arguments(x, T, length):
+    with pytest.raises(ValueError):
+        nk.radix2_ntt(x, T, length)
+
+
 def test_radix2_transform_matches_jax_at_2_10(engines):
     jntt, ntt = engines
     vals = _rand_fr(4, 1 << 10)
@@ -96,7 +138,7 @@ def test_fourstep_matches_radix2_at_2_14(engines):
     x = ntt.K.pack(_rand_fr(5, n))
     for inverse in (False, True):
         four = ntt._transform_fourstep(x, ntt.table(n, inverse), inverse)
-        radix2 = ntt._transform(x, ntt.master(n, inverse))
+        radix2 = nk.radix2_ntt_plain(x, ntt.master(n, inverse))
         assert torch.equal(four, radix2), inverse
     assert torch.equal(ntt.inverse(ntt.forward(x)), x)
 
