@@ -20,7 +20,9 @@ Phases:
            at every n from 2 to 2^13 and at 3 rows of 2^12 and 2^13, timed
            at 2^12 and 2^13 with its cluster launch beside the stage path
            it replaced (the stage loop over K4's stage form, on the card);
-           K4's stage form.  Each row gives the device
+           K4's stage form; NTTEngine._transform on 2 rows of 2^14 and 1 row of
+           2^15 (the four-step form) against the plain radix-2 loop.  Each
+           row gives the device
            time per launch from torch.profiler's device events ("device",
            the "ms" of the JSON line), the CUDA-event time of a loop of
            wrapper calls ("wrapper", the host's launch cost included), the
@@ -35,9 +37,24 @@ Phases:
            K4's whole-transform form must launch exactly 7 times in a prove
            and its stage form never; then the same proofs through the stage
            path, in turns with the kernel path, timed and profiled.
+  dsl      the README's --fast recipe at 2^16 constraints, without the CLI:
+           flat-code source of a 2^16 - 1 link multiplication chain ->
+           parse_source -> calculate_witness(field_modulus=R) ->
+           SparseR1CS.from_circuit -> FastGroth16 on the card, as main.
+           K1 at most 80 and K3 exactly 28 launches a prove; prints the
+           compile, witness and sparse seconds, row_evals through the C++
+           and the Python route, and proves in turns with each route.
+  parity   the parity protocols (api's groth16 and pinocchio flows) with
+           the card hooks on (models.accel: enable_gpu_msm, enable_gpu_setup)
+           and then on the host, on the cubic circuit (min_size 4) and a
+           128-link DSL power chain (min_size 64): both verify, a wrong public
+           fails, every key and proof point from the card equals the host's
+           as a group element, K1's reduce form launches at least twice per
+           MSM of a proof, and the per-lane K1 add and K2 launch.
 
 The kernel launch counts are set to 0 just before a path is driven and read
-just after.  The second-to-last line is one JSON object with a row per
+just after (the parity flows: before and after each setup and proof).  Each
+of the dsl and parity phases prints one JSON line of its numbers.  The second-to-last line is one JSON object with a row per
 kernel; the last line is {"ok": true, "device": {...}}.  Any failure exits
 non-zero before that line.  Without a CUDA device the script exits 1.
 """
@@ -45,6 +62,7 @@ non-zero before that line.  Without a CUDA device the script exits 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import random
@@ -52,9 +70,13 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "main", "small")
+PHASES = ("build", "kernels", "main", "small", "dsl", "parity")
 DEVICE = "cuda"
 MAIN_LOG, SMALL_LOG = 16, 12  # constraints of the main path and of the radix-2 path
+DSL_LOG = 16  # the dsl phase: a flat-code chain of 2^16 - 1 links, 2^16 constraints
+K3_PER_PROVE = 28  # K3 launches per 2^16 prove: 7 four-step NTTs x 2 column passes x 2 leaves
+PARITY_LINKS = 128  # the parity phase's DSL power chain: 132 signals, every MSM >= 64 points
+TRANSFORM_ROWS = ((2, 1 << 14), (1, 1 << 15))  # NTTEngine._transform above K4's 2^13: rows, n
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SMS = 132
 IMAD_PER_CLK_PER_SM = 64
@@ -304,6 +326,27 @@ def check_kernels(torch, clock_hz, rows, card):
     rows["K4 stage"] = dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by, shape=f"(8, {n})")
     say("K4", f"stage form (butterfly) {n} lanes", t, card)
     check_k4(torch, clock_hz, rows, card, gen)
+    check_long_rows(torch, card, gen)
+
+
+def check_long_rows(torch, card, gen):
+    """NTTEngine._transform on rows above K4's 2^13 (the four-step form, K3
+    leaves and K2 twiddles, a row at a time) against the plain radix-2 stage
+    loop, forward and inverse, bit for bit."""
+    from go_snark_study_tpu_torch.bn128 import constants as C
+    from go_snark_study_tpu_torch.ops import ntt_kernels as nk
+    from go_snark_study_tpu_torch.ops.limbs import FieldKernels
+    from go_snark_study_tpu_torch.ops.ntt import NTTEngine
+
+    ntt = NTTEngine(FieldKernels(C.R, DEVICE))
+    for nrows, n in TRANSFORM_ROWS:
+        x = rand_fq(torch, gen, nrows * n, C.R >> 224)
+        for inverse in (False, True):
+            T = ntt.master(n, inverse)
+            got, want = ntt._transform(x, T, n), nk.radix2_ntt_plain(x, T, n)
+            assert torch.equal(got, want), f"_transform {nrows} x 2^{n.bit_length() - 1} inverse={inverse}: != plain"
+        print(f"[kernels] NTTEngine._transform {nrows} row(s) of 2^{n.bit_length() - 1} (four-step): forward and "
+              f"inverse match the plain radix-2 loop  ({card})")
 
 
 def radix2_products(n: int) -> int:
@@ -584,14 +627,14 @@ def profile_prove(torch, fast, r1cs, pk, rng, tag: str, card: str):
     return dict(wall_s=wall, busy_s=busy_us / 1e6, launches=sum(e.count for e in events))
 
 
-def run_path(torch, log_n: int, seed_rng: int, timed_second: bool, card: str):
+def run_path(torch, tag: str, r1cs, seed_rng: int, timed_second: bool, card: str):
+    """FastGroth16 on the card (device=None) over one sparse system: setup,
+    a prove, a second one timed, verification, a wrong public; the launch
+    counts are set to 0 just before the setup and read after the proves."""
     from go_snark_study_tpu_torch.models.groth16 import verify_proof
     from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
     from go_snark_study_tpu_torch.ops import point_add as pa
-    from go_snark_study_tpu_torch.synthetic import mul_chain_r1cs
 
-    tag = f"2^{log_n}"
-    r1cs = mul_chain_r1cs(1 << log_n, seed=1)
     rng = random.Random(seed_rng)
     fast = FastGroth16()  # device=None: the card, as a user calls it
     torch.cuda.synchronize()
@@ -683,6 +726,270 @@ def compare_stage_path(torch, path: dict, card: str):
     return dict(prove_s=times, profile=prof)
 
 
+def chain_source(n_links: int, seed: int = 7):
+    """Flat-code multiplication chain t_k = t_{k-1} * t_{k-2}, n_links links
+    and an output binding (n_links + 1 constraints): (source, private
+    inputs, public inputs).  The generator of tests/test_sparse_cli.py."""
+    from go_snark_study_tpu_torch.bn128.constants import R
+
+    rng = random.Random(seed)
+    s0, s1 = rng.randrange(2, R), rng.randrange(2, R)
+    lines = ["func main(private s0, private s1, public out):"]
+    a, b, va, vb = "s0", "s1", s0, s1
+    for k in range(n_links):
+        lines.append(f"t{k} = {a} * {b}")
+        a, b, va, vb = b, f"t{k}", vb, va * vb % R
+    lines.append(f"out = {b} * 1")
+    return "\n".join(lines) + "\n", [s0, s1], [vb]
+
+
+def power_chain_source(n_links: int, x: int = 3):
+    """Flat-code chain s_1 = s0 * s0, s_{i+1} = s_i * s0 up to s_n, bound to
+    the public output (tests/test_accel.py's native-witness circuit): n + 3
+    constraints, n + 4 signals.  Its raw-integer witness stays small (x^(n+1)),
+    which the parity path's compile_circuit computes without reduction.
+    Returns (source, private inputs, public inputs)."""
+    from go_snark_study_tpu_torch.bn128.constants import R
+
+    body = "\n".join(f"\ts{i + 1} = s{i} * s0" for i in range(1, n_links))
+    src = ("func main(private s0, public out1):\n\ts1 = s0 * s0\n" + body
+           + f"\n\tequals(out1, s{n_links})\n\tout = 1 * 1\n")
+    return src, [x], [pow(x, n_links + 1, R)]
+
+
+def native_route(card: str) -> dict:
+    """Load (or make, with ``make -C native``) the C++ host runtime; say
+    which route the witness and row evaluations take."""
+    from go_snark_study_tpu_torch import native
+
+    present = os.path.exists(native.LIB_PATH)
+    t0 = time.perf_counter()
+    ok = native.available()
+    secs = time.perf_counter() - t0
+    how = "present" if present else (f"made with make in {secs:.1f} s" if ok else "could not be made")
+    print(f"[native] libgosnark_native.so {how}: witness and row_evals take the "
+          f"{'C++' if ok else 'Python'} route  ({card})")
+    return dict(native=ok, library=how)
+
+
+@contextlib.contextmanager
+def python_route():
+    """The witness and row evaluations take their Python route meanwhile,
+    as where the C++ library is absent."""
+    from go_snark_study_tpu_torch import native
+
+    available = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = available
+
+
+def run_dsl(torch, card: str, main_path, route: dict):
+    """The README's --fast recipe without the CLI: flat-code source of a
+    2^16-constraint chain -> parse_source -> field-mode witness ->
+    SparseR1CS.from_circuit -> FastGroth16 on the card."""
+    from go_snark_study_tpu_torch.bn128.constants import R
+    from go_snark_study_tpu_torch.circuitcompiler import parse_source
+    from go_snark_study_tpu_torch.synthetic import SparseR1CS
+
+    src, priv, pub = chain_source((1 << DSL_LOG) - 1)
+    t0 = time.perf_counter()
+    circuit = parse_source(src)
+    t_parse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w = circuit.calculate_witness(priv, pub, field_modulus=R)
+    t_witness = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r1cs = SparseR1CS.from_circuit(circuit, witness=w)
+    t_sparse = time.perf_counter() - t0
+    assert r1cs.n_constraints == 1 << DSL_LOG, r1cs.n_constraints
+    assert r1cs.witness[1 : r1cs.n_public + 1] == pub
+    t_rows = []  # the first call of the C++ route builds the CSR arrays it keeps
+    for _ in range(2):
+        t0 = time.perf_counter()
+        evals = r1cs.row_evals()
+        t_rows.append(time.perf_counter() - t0)
+    with python_route():
+        t0 = time.perf_counter()
+        evals_py = r1cs.row_evals()
+        t_rows_py = time.perf_counter() - t0
+    assert evals == evals_py, "row_evals: the C++ and Python routes differ"
+    print(f"[dsl] {r1cs.n_constraints} constraints, {r1cs.n_signals} signals: parse {t_parse:.3f} s, witness "
+          f"{t_witness:.3f} s, from_circuit {t_sparse:.3f} s; row_evals {t_rows[0]:.3f} s then {t_rows[1]:.3f} s "
+          f"({'C++' if route['native'] else 'Python'} route), {t_rows_py:.3f} s (Python route)  ({card})")
+    tag = f"dsl 2^{DSL_LOG}"
+    path = run_path(torch, tag, r1cs, 7, True, card)
+    for k in K1_FORMS + ("K2", "K3"):
+        assert path["counts"][k] > 0, f"{k} not launched on the {tag} path"
+    k1_per_prove = sum(path["prove_counts"][k] for k in K1_FORMS)
+    assert k1_per_prove <= 80, f"K1 launched {k1_per_prove} times in one {tag} prove"
+    assert path["prove_counts"]["K3"] == K3_PER_PROVE, f"K3 launched {path['prove_counts']['K3']} times in one prove"
+    # the prove's row evaluations through each route, in turns
+    fast, pk, rng = path["fast"], path["setup"].pk, path["rng"]
+    turns = {"python": [], "native": []}
+    for which in ("python", "native", "native", "python"):
+        with python_route() if which == "python" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            fast.prove(r1cs, pk, rng=rng)
+            torch.cuda.synchronize()
+            turns[which].append(time.perf_counter() - t0)
+    print(f"[{tag}] prove s in turns by row_evals route (python, native, native, python): {json.dumps(turns)}  "
+          f"({card})")
+    line = dict(card=card, constraints=r1cs.n_constraints, signals=r1cs.n_signals, **route,
+                parse_s=t_parse, witness_s=t_witness, from_circuit_s=t_sparse,
+                row_evals_s=t_rows, row_evals_python_s=t_rows_py, setup_s=path["setup_s"],
+                prove_s=path["prove_s"], main_mul_chain_prove_s=main_path["prove_s"] if main_path else None,
+                prove_s_by_row_evals_route=turns, k1_per_prove=k1_per_prove,
+                prove_counts=path["prove_counts"], fallbacks=path["fallbacks"], profile=path["profile"],
+                peak_bytes=path["peak_bytes"])
+    print(json.dumps({"dsl": line}))
+    return path
+
+
+PARITY_MSMS = {"groth16": 5, "pinocchio": 8}  # MSMs in one proof
+
+
+def parity_run(proto: str, bundle, seed: int, card_hooks, tag: str):
+    """One parity flow, in the order of api.groth16_flow / pinocchio_flow:
+    trusted setup, proof, verification (and a wrong public).  With
+    ``card_hooks`` = min_size the card's hooks are on, the launch counts
+    are set to 0 before each step and read after it, and the flow's entry
+    point runs once more and must give the same setup and proof.  The hooks
+    return host points, so each step's clock includes the card's work.
+    ``fallback_hits``: the proof's MSMs whose flag fired."""
+    from go_snark_study_tpu_torch import api
+    from go_snark_study_tpu_torch.models import accel, groth16, pinocchio
+
+    mod = groth16 if proto == "groth16" else pinocchio
+    flow = api.groth16_flow if proto == "groth16" else api.pinocchio_flow
+    circuit, w = bundle.circuit, bundle.witness
+    publics = w[1 : circuit.n_public + 1]
+    on_card = card_hooks is not None
+    if on_card:
+        accel.enable_gpu_msm(min_size=card_hooks)
+        accel.enable_gpu_setup(min_size=card_hooks)
+    engines = accel.msm_engines()
+    hits0 = sum(e.fallback_hits for e in engines)
+    out, counts = {}, {}
+    try:
+        rng = random.Random(seed)
+        reset_counts()
+        t0 = time.perf_counter()
+        setup = mod.generate_trusted_setup(len(w), circuit, bundle.alphas, bundle.betas, bundle.gammas, rng=rng)
+        out["setup_s"] = time.perf_counter() - t0
+        counts["setup"] = read_counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        if proto == "groth16":
+            proof = mod.generate_proofs(circuit, setup.pk, w, bundle.px, rng=rng)
+        else:
+            proof = mod.generate_proofs(circuit, setup.pk, w, bundle.px)
+        out["prove_s"] = time.perf_counter() - t0
+        counts["prove"] = read_counts()
+        out["fallback_hits"] = sum(e.fallback_hits for e in engines) - hits0
+        t0 = time.perf_counter()
+        ok = mod.verify_proof(setup.vk, proof, publics)
+        out["verify_s"] = time.perf_counter() - t0
+        assert ok, f"[{tag}] {proto}: proof does not verify"
+        assert not mod.verify_proof(setup.vk, proof, [publics[0] + 1]), f"[{tag}] {proto}: a wrong public verifies"
+        if on_card:
+            reset_counts()
+            t0 = time.perf_counter()
+            fsetup, fproof, fok = flow(bundle, rng=random.Random(seed))
+            out["flow_s"] = time.perf_counter() - t0
+            counts["flow"] = read_counts()
+            assert fok, f"[{tag}] {proto}_flow does not verify"
+            assert same_points(fsetup, setup) and same_points(fproof, proof), f"[{tag}] {proto}_flow differs"
+    finally:
+        if on_card:
+            accel.disable_gpu_msm()
+            accel.disable_gpu_setup()
+    return setup, proof, out, counts
+
+
+def same_points(got, want) -> int:
+    """Number of group elements in two setups or proofs, field by field,
+    or 0 if any differs (G2 points have Fq2 coordinates)."""
+    import dataclasses
+
+    from go_snark_study_tpu_torch.bn128 import default_bn128
+
+    bn = default_bn128()
+
+    def eq(a, b):
+        if isinstance(a, tuple) and len(a) == 3:
+            return 1 if (bn.g2 if isinstance(a[0], tuple) else bn.g1).equal(a, b) else None
+        if isinstance(a, list) and a and isinstance(a[0], tuple):
+            if len(a) != len(b):
+                return None
+            parts = [eq(x, y) for x, y in zip(a, b)]
+        elif dataclasses.is_dataclass(a):
+            parts = [eq(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)]
+        else:
+            return 0 if a == b else None
+        return None if None in parts else sum(parts)
+
+    return eq(got, want) or 0
+
+
+def run_parity(card: str):
+    """The parity protocols with the card hooks on (enable_gpu_msm and
+    enable_gpu_setup, device=None) against the same flows on the host, on
+    the cubic circuit (min_size 4) and a 128-link DSL power chain (min_size
+    64, the default): both verify, a wrong public fails, every key and proof
+    point from the card equals the host's as a group element."""
+    from go_snark_study_tpu_torch import api
+
+    cubic = """
+func main(private s0, public s1):
+	s2 = s0 * s0
+	s3 = s2 * s0
+	s4 = s3 + s0
+	s5 = s4 + 5
+	equals(s1, s5)
+	out = 1 * 1
+"""
+    circuits = (("cubic", (cubic, [3], [35]), 4), (f"chain {PARITY_LINKS}", power_chain_source(PARITY_LINKS), 64))
+    total = {k: 0 for k in kernel_objects()}
+    lines = []
+    for name, (src, priv, pub), min_size in circuits:
+        t0 = time.perf_counter()
+        bundle = api.compile_circuit(source=src, private_inputs=priv, public_inputs=pub)
+        t_qap = time.perf_counter() - t0
+        n_sig = len(bundle.witness)
+        print(f"[parity {name}] compile_circuit (parse, witness, R1CS, QAP on the host) {t_qap:.3f} s, "
+              f"{n_sig} signals, px of {len(bundle.px)} coefficients  ({card})")
+        for proto in ("groth16", "pinocchio"):
+            tag = f"parity {name} {proto}"
+            seed = 31 if proto == "groth16" else 32
+            setup, proof, on, counts = parity_run(proto, bundle, seed, min_size, tag)
+            hsetup, hproof, host, _ = parity_run(proto, bundle, seed, None, tag)
+            n_key, n_proof = same_points(setup, hsetup), same_points(proof, hproof)
+            assert n_key > 0, f"[{tag}] a key point from the card differs from the host's"
+            assert n_proof > 0, f"[{tag}] a proof point from the card differs from the host's"
+            reduce_per_msm = counts["prove"]["K1 reduce"] / PARITY_MSMS[proto]
+            assert reduce_per_msm >= 2, f"[{tag}] K1 reduce launched {counts['prove']['K1 reduce']} times in a proof"
+            assert counts["setup"]["K1"] > 0, f"[{tag}] the per-lane K1 add did not launch in the setup"
+            assert counts["prove"]["K2"] > 0, f"[{tag}] K2 did not launch in the proof"
+            for phase in ("setup", "prove"):
+                for k, v in counts[phase].items():
+                    total[k] += v
+            print(f"[{tag}] card: setup {on['setup_s']:.3f} s, prove {on['prove_s']:.3f} s, verify "
+                  f"{on['verify_s']:.3f} s, {proto}_flow {on['flow_s']:.3f} s, degeneracy re-runs "
+                  f"{on['fallback_hits']}; host: setup {host['setup_s']:.3f} s, prove {host['prove_s']:.3f} s, "
+                  f"verify {host['verify_s']:.3f} s; {n_key} key and {n_proof} proof points equal  ({card})")
+            print(f"[{tag}] launches: setup {json.dumps(counts['setup'])}; proof {json.dumps(counts['prove'])}  "
+                  f"({card})")
+            lines.append(dict(circuit=name, protocol=proto, signals=n_sig, min_size=min_size, qap_compile_s=t_qap,
+                              card=on, host=host, launches=counts, key_points_equal=n_key,
+                              proof_points_equal=n_proof, k1_reduce_per_msm=reduce_per_msm))
+    print(json.dumps({"parity": {"card": card, "flows": lines}}))
+    return dict(counts=total)
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -699,6 +1006,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from go_snark_study_tpu_torch import _build
+    from go_snark_study_tpu_torch.synthetic import mul_chain_r1cs
 
     card = card_line()
     clock_hz = max_sm_clock_hz()
@@ -734,24 +1042,31 @@ def main(argv=None) -> int:
             bad = [fn for fn, (_, props) in k4.items() if props != NO_STACK]
             assert len(k4) == 1 and not bad, f"K4 whole-transform kernel with a stack frame or spills: {list(k4)}"
 
+    # before any prove: the first row evaluation would make the library
+    route = native_route(card)
     rows = {}
     if "kernels" in phases:
         check_kernels(torch, clock_hz, rows, card)
 
     paths = {}
     if "main" in phases:
-        paths["main"] = run_path(torch, MAIN_LOG, 7, True, card)
+        paths["main"] = run_path(torch, f"2^{MAIN_LOG}", mul_chain_r1cs(1 << MAIN_LOG, seed=1), 7, True, card)
         main_path = paths["main"]
         for k in K1_FORMS + ("K2", "K3"):
             assert main_path["counts"][k] > 0, f"{k} not launched on the 2^{MAIN_LOG} path"
         k1_per_prove = sum(main_path["prove_counts"][k] for k in K1_FORMS)
         assert k1_per_prove <= 80, f"K1 launched {k1_per_prove} times in one 2^{MAIN_LOG} prove"
     if "small" in phases:
-        small = paths["small"] = run_path(torch, SMALL_LOG, 7, True, card)
+        small = paths["small"] = run_path(torch, f"2^{SMALL_LOG}", mul_chain_r1cs(1 << SMALL_LOG, seed=1), 7, True,
+                                          card)
         assert small["prove_counts"]["K4"] == K4_PER_PROVE, \
             f"K4 whole-transform launched {small['prove_counts']['K4']} times in one 2^{SMALL_LOG} prove"
         assert small["counts"]["K4 stage"] == 0, f"K4 stage form launched on the 2^{SMALL_LOG} path"
         rows["small_vs_stage_path"] = compare_stage_path(torch, small, card)
+    if "dsl" in phases:
+        paths["dsl"] = run_dsl(torch, card, paths.get("main"), route)
+    if "parity" in phases:
+        paths["parity"] = run_parity(card)
 
     kernels = []
     objs = kernel_objects()
@@ -765,6 +1080,7 @@ def main(argv=None) -> int:
             "source": obj.source_path,
             "replaces": obj.replaces,
             "launches": launches,
+            "launches_by_path": {p: v["counts"][name] for p, v in paths.items()},
             "max_abs_err": row.get("max_abs_err"),
             "ms": row.get("ms"),
             "device_ms": row.get("device_ms"),

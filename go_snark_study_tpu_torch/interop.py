@@ -7,18 +7,32 @@ re-packing of bytes.  Arrays cross between the two packages as numpy
 arrays; nothing here imports JAX.
 
 :func:`device_pk_from_jax` carries a JAX ``DevicePk`` over to the port, so
-that both provers can run on one key.
+that both provers can run on one key.  :func:`parity_setup_from_jax` and
+:func:`parity_proof_from_jax` do the same for the parity protocols' host
+artifacts (Groth16 and Pinocchio setups and proofs, Jacobian int tuples):
+they read the JAX dataclasses' fields by name, so nothing of the JAX package
+is imported.  The port's artifacts need no conversion the other way: the
+JAX prover and verifier read the same field names.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .models import groth16, pinocchio
 from .models.groth16_fast import DevicePk
 from .ops.limbs import resolve_device
 
-__all__ = ["jax_to_port", "port_to_jax", "device_pk_from_jax"]
+__all__ = [
+    "jax_to_port",
+    "port_to_jax",
+    "device_pk_from_jax",
+    "parity_setup_from_jax",
+    "parity_proof_from_jax",
+]
 
 
 def jax_to_port(arr: np.ndarray) -> np.ndarray:
@@ -70,3 +84,35 @@ def device_pk_from_jax(arrays: dict, *, n: int, m: int, lo: int, device=None) ->
         n_pad=int(np.asarray(arrays["ptau"]).shape[-1]),
         **pts,
     )
+
+
+def _dataclass_from(obj, cls):
+    """An instance of the port's dataclass ``cls`` with the fields of
+    ``obj``, read by name; nested dataclasses (``Pk.g1`` ...) recursively,
+    lists copied (their points are tuples of ints)."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(f.default_factory):
+            v = _dataclass_from(v, f.default_factory)
+        elif isinstance(v, list):
+            v = list(v)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def _protocol(is_pinocchio: bool):
+    return pinocchio if is_pinocchio else groth16
+
+
+def parity_setup_from_jax(setup):
+    """A JAX ``groth16.Setup`` or ``pinocchio.Setup`` -> the port's, field
+    by field.  The protocol is told by the proving key's fields (Pinocchio's
+    has ``g1t``)."""
+    return _dataclass_from(setup, _protocol(hasattr(setup.pk, "g1t")).Setup)
+
+
+def parity_proof_from_jax(proof):
+    """A JAX ``groth16.Proof`` or ``pinocchio.Proof`` -> the port's
+    (Pinocchio's has ``pi_ap``)."""
+    return _dataclass_from(proof, _protocol(hasattr(proof, "pi_ap")).Proof)

@@ -27,7 +27,7 @@ import torch
 
 from ..bn128 import constants as C
 from .limbs import LIMBS, FieldKernels
-from .ntt_kernels import radix2_ntt, small_ntt
+from .ntt_kernels import RADIX2_MAX, radix2_ntt, small_ntt
 
 __all__ = ["NTTEngine"]
 
@@ -77,10 +77,27 @@ class NTTEngine:
     def _transform(self, x: torch.Tensor, T: torch.Tensor, length: int | None = None):
         """x: (8, total) Montgomery limbs -> transformed, natural order per
         row.  ``T``: master twiddles for the per-row length; ``length``:
-        per-transform length for row-batched use."""
-        if (length or x.shape[1]) == 1:
+        per-transform length for row-batched use.  Rows of up to
+        ``RADIX2_MAX`` points are one K4 launch; longer rows take the
+        four-step form one row at a time, which gives the same canonical
+        values.  The direction is recovered from ``T``: it must be one of
+        this engine's two master tables for the row length."""
+        n = length or x.shape[1]
+        if n == 1:
             return x
-        return radix2_ntt(x, T, length)
+        if n <= RADIX2_MAX:
+            return radix2_ntt(x, T, length)
+        if n & (n - 1) or x.shape[1] % n:
+            raise ValueError(f"unsupported transform length {n} over {x.shape[1]} lanes")
+        if torch.equal(T, self.master(n, True)):
+            inverse = True
+        elif torch.equal(T, self.master(n, False)):
+            inverse = False
+        else:
+            raise ValueError(f"T is not a master table of length-{n} transforms")
+        w_table = self.step_table(n, inverse)
+        rows = [self._transform_fourstep(x[:, i : i + n], w_table, inverse) for i in range(0, x.shape[1], n)]
+        return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
 
     # ------------------------------------------------------------------
     # four-step path

@@ -110,6 +110,7 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import go_snark_study_tpu_torch.interop, go_snark_study_tpu_torch.models.groth16_fast\n"
         "import go_snark_study_tpu_torch.ops.ntt, go_snark_study_tpu_torch.ops.fixed_base\n"
+        "import go_snark_study_tpu_torch.api, go_snark_study_tpu_torch.models.accel\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'go_snark_study_tpu' or m.startswith('go_snark_study_tpu.')]\n"
         "print(bad)\n"

@@ -127,3 +127,40 @@ def test_card_proof_matches_jax_record(cuda_device):
     publics = r1cs.witness[1 : r1cs.n_public + 1]
     assert verify_proof(setup.vk, proof, publics)
     assert not verify_proof(setup.vk, proof, [publics[0] + 1])
+
+
+@pytest.mark.gpu
+def test_transform_above_radix2_max_on_card(cuda_device):
+    """Rows longer than K4's 2^13 through ``NTTEngine._transform`` on the card
+    (four-step: K3 leaves, K2 twiddles), bit for bit with the plain radix-2
+    stage loop."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(11)
+    ntt = NTTEngine(FieldKernels(C.R, cuda_device))
+    for rows, n in ((2, 1 << 14), (1, 1 << 15)):
+        x = torch.randint(0, 2**32, (8, rows * n), generator=gen, device=cuda_device, dtype=torch.int64)
+        x[7] %= C.R >> 224
+        x = x.to(torch.int32)
+        for inverse in (False, True):
+            T = ntt.master(n, inverse)
+            assert torch.equal(ntt._transform(x, T, n), nk.radix2_ntt_plain(x, T, n)), (rows, n, inverse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("protocol", ["groth16", "pinocchio"])
+def test_accelerated_flows_on_card(cuda_device, protocol):
+    """The parity protocols with the card hooks on (device=None) on the cubic
+    circuit: they verify, and every key and proof point equals the host
+    loops' as a group element."""
+    from go_snark_study_tpu_torch import api
+    from go_snark_study_tpu_torch.models import groth16, pinocchio
+
+    from test_torch_accel import CUBIC, hooked_and_host, same_points
+
+    flow, mod = {"groth16": (api.groth16_flow, groth16), "pinocchio": (api.pinocchio_flow, pinocchio)}[protocol]
+    bundle = api.compile_circuit(source=CUBIC, private_inputs=[3], public_inputs=[35])
+    (setup, proof, ok), (hsetup, hproof, hok) = hooked_and_host(flow, bundle, 21, None)
+    assert ok and hok
+    assert same_points(setup, hsetup) > 20
+    assert same_points(proof, hproof) >= 3
+    assert not mod.verify_proof(setup.vk, proof, [36])

@@ -149,3 +149,16 @@ def test_coset_powers_match_host():
     n, g = 64, 5
     assert K.unpack(ntt.coset_powers(n, g, False)) == [pow(g, i, C.R) for i in range(n)]
     assert K.unpack(ntt.coset_powers(n, g, True)) == [pow(g, -i, C.R) for i in range(n)]
+
+
+@pytest.mark.parametrize("rows, n", [(2, 1 << 14), (1, 1 << 15)], ids=["2x2^14", "1x2^15"])
+def test_transform_above_radix2_max_matches_plain(engines, rows, n):
+    """Rows longer than K4's 2^13 take the four-step form inside
+    ``_transform`` (the direction read off the master table), bit for bit
+    with the plain radix-2 stage loop."""
+    _, ntt = engines
+    x = ntt.K.pack(_rand_fr(rows + n, rows * n))
+    for inverse in (False, True):
+        T = ntt.master(n, inverse)
+        want = nk.radix2_ntt_plain(x, T, n)
+        assert torch.equal(ntt._transform(x, T, n if rows > 1 else None), want), inverse
