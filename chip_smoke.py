@@ -51,10 +51,22 @@ Phases:
            fails, every key and proof point from the card equals the host's
            as a group element, K1's reduce form launches at least twice per
            MSM of a proof, and the per-lane K1 add and K2 launch.
+  cli      the port's CLI (go_snark_study_tpu_torch.cli.main, in-process, on
+           the card) in a temporary directory on the dsl phase's 2^16
+           chain: compile --fast, groth16 trustedsetup --fast (the binary
+           key file), groth16 genproofs --fast twice (each a fresh main()
+           call), groth16 verify (exit 0) and again on a tampered public
+           input (exit 1).  At most 80 K1 and exactly 28 K3 launches per
+           genproofs.  Then one more genproofs with GOSNARK_MSM_PROFILE=1
+           (the profiler's rows); on one engine, setups with and without
+           host lists in turns; the key file round trip of main's 2^16
+           setup (this phase's own when main did not run), every tensor
+           equal; and the first prove on a fresh engine without and with a
+           warmup, beside a second prove and a profiled third.
 
 The kernel launch counts are set to 0 just before a path is driven and read
 just after (the parity flows: before and after each setup and proof).  Each
-of the dsl and parity phases prints one JSON line of its numbers.  The second-to-last line is one JSON object with a row per
+of the dsl, parity and cli phases prints one JSON line of its numbers.  The second-to-last line is one JSON object with a row per
 kernel; the last line is {"ok": true, "device": {...}}.  Any failure exits
 non-zero before that line.  Without a CUDA device the script exits 1.
 """
@@ -70,17 +82,13 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "main", "small", "dsl", "parity")
+PHASES = ("build", "kernels", "main", "small", "dsl", "parity", "cli")
 DEVICE = "cuda"
 MAIN_LOG, SMALL_LOG = 16, 12  # constraints of the main path and of the radix-2 path
 DSL_LOG = 16  # the dsl phase: a flat-code chain of 2^16 - 1 links, 2^16 constraints
 K3_PER_PROVE = 28  # K3 launches per 2^16 prove: 7 four-step NTTs x 2 column passes x 2 leaves
 PARITY_LINKS = 128  # the parity phase's DSL power chain: 132 signals, every MSM >= 64 points
 TRANSFORM_ROWS = ((2, 1 << 14), (1, 1 << 15))  # NTTEngine._transform above K4's 2^13: rows, n
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-SMS = 132
-IMAD_PER_CLK_PER_SM = 64
-IMADS_PER_MONT_MUL = 264  # 8 x (16 wide products x 2 + 1): csrc/field.cuh
 # kernel-check shapes, as the main path gives them
 LANES_MAIN = 1 << 16  # K2: one H-pipeline product at 2^16
 K1_LANES = 1 << 14  # K1: every instance, with edge-case lanes
@@ -97,9 +105,6 @@ K4_PER_PROVE = 7  # radix-2 transforms per prove below 2^14 (groth16_fast._h_pip
 # m_pad = 67,584 points = K 33 x m 2048, p_cap 3200, 1088 buckets = Q 17 x D 64
 MSM_C, MSM_POINTS = 11, 67584
 FIXED_BASE_LANES = 67584  # K1 per-lane jadd of the setup's fixed-base commits
-# Montgomery products per add, Fq2 product = 3 and square = 2 Fq products
-PRODUCTS = {("madd", 1): 11, ("madd", 2): 29, ("jadd", 1): 16, ("jadd", 2): 43,
-            ("dbl", 1): 7, ("dbl", 2): 16}
 
 
 def card_line() -> str:
@@ -119,9 +124,20 @@ def max_sm_clock_hz() -> float:
 
 
 def bound_ms(nbytes: float, imads: float, clock_hz: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = imads / (SMS * IMAD_PER_CLK_PER_SM * clock_hz)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    """(least ms, what bounds it) on the port's H100 model
+    (``profiling.CHIP_MODELS["h100"]``) at the card's SM clock."""
+    from go_snark_study_tpu_torch.profiling import CHIP_MODELS
+
+    s, by = CHIP_MODELS["h100"].at_clock(clock_hz).bound_s(nbytes, imads)
+    return s * 1e3, by
+
+
+def cost_bound(kind: str, n: int, clock_hz: float, **shape):
+    """bound_ms of ``profiling.kernel_cost(kind, n, **shape)``."""
+    from go_snark_study_tpu_torch.profiling import kernel_cost
+
+    c = kernel_cost(kind, n, **shape)
+    return bound_ms(c["bytes"], c["int32_ops"], clock_hz)
 
 
 NO_STACK = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
@@ -248,7 +264,7 @@ def check_kernels(torch, clock_hz, rows, card):
         err = max_abs_err(torch, got, want)
         assert torch.equal(got, want), f"K2 {tag}: kernel != plain (max abs err {err})"
         t = timed(torch, lambda: mm.mont_mul(a, b, p), lambda: mm.mont_mul_plain(a, b, p), 200, k2, 5)
-        bnd, by = bound_ms(3 * 32 * LANES_MAIN, IMADS_PER_MONT_MUL * LANES_MAIN, clock_hz)
+        bnd, by = cost_bound("mont_mul", LANES_MAIN, clock_hz)
         rows[f"K2 {tag}"] = dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by, shape=f"(8, {LANES_MAIN}) {tag}")
         say("K2", f"mont_mul {tag} {LANES_MAIN} lanes", t, card)
     rows["K2"] = rows["K2 fq"]
@@ -306,7 +322,7 @@ def check_kernels(torch, clock_hz, rows, card):
         gl, wl = pa._leaves(got, arity), pa._leaves(want, arity)
         assert all(torch.equal(g, w) for g, w in zip(gl, wl)), f"K1 fixed-base G{arity}: kernel != plain"
         t = timed(torch, lambda: pa.point_add("jadd", arity, p1, p2), None, 100, k1)
-        bnd, by = bound_ms(arity * 9 * 32 * n, PRODUCTS["jadd", arity] * IMADS_PER_MONT_MUL * n, clock_hz)
+        bnd, by = cost_bound("point_add", n, clock_hz, group=arity)
         rows.setdefault("K1_sites", []).append(dict(
             t, site="fixed-base (per-lane jadd)", group=f"G{arity}", shape=f"{n} lanes",
             max_abs_err=max_abs_err(torch, gl, wl), bound_ms=bnd, bound_by=by))
@@ -322,7 +338,7 @@ def check_kernels(torch, clock_hz, rows, card):
     err = max_abs_err(torch, got, want)
     assert all(torch.equal(a, b) for a, b in zip(got, want)), "K4 stage form: kernel != plain"
     t = timed(torch, lambda: nk.butterfly(e, o, tw4), lambda: nk.butterfly_plain(e, o, tw4), 500, k4, 10)
-    bnd, by = bound_ms(5 * 32 * n, IMADS_PER_MONT_MUL * n, clock_hz)
+    bnd, by = cost_bound("butterfly", n, clock_hz)
     rows["K4 stage"] = dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by, shape=f"(8, {n})")
     say("K4", f"stage form (butterfly) {n} lanes", t, card)
     check_k4(torch, clock_hz, rows, card, gen)
@@ -349,11 +365,6 @@ def check_long_rows(torch, card, gen):
               f"inverse match the plain radix-2 loop  ({card})")
 
 
-def radix2_products(n: int) -> int:
-    """Montgomery products of an n-point radix-2 DIT transform, j = 0 skipped."""
-    return sum(n // 2 - n // (1 << s) for s in range(1, n.bit_length()))
-
-
 def check_k4(torch, clock_hz, rows, card, gen):
     """K4's whole-transform form against its plain version, forward and
     inverse, bit for bit: every n from 2 to 2^13 (each timed: device ms by
@@ -368,6 +379,7 @@ def check_k4(torch, clock_hz, rows, card, gen):
     from go_snark_study_tpu_torch.ops import ntt_kernels as nk
     from go_snark_study_tpu_torch.ops.limbs import FieldKernels
     from go_snark_study_tpu_torch.ops.ntt import NTTEngine
+    from go_snark_study_tpu_torch.profiling import H100_IMAD_PER_CLK_PER_SM, kernel_cost
 
     ntt = NTTEngine(FieldKernels(C.R, DEVICE))
 
@@ -402,9 +414,10 @@ def check_k4(torch, clock_hz, rows, card, gen):
         launch = nk.radix2_ntt_shape(n, 1)
         t = timed(torch, lambda: nk.radix2_ntt(x, T), lambda: nk.radix2_ntt_plain(x, T), 200,
                   ("radix2_ntt_kernel",))
-        imads = radix2_products(n) * IMADS_PER_MONT_MUL
-        bnd, by = bound_ms(2 * 32 * n + 32 * (n // 2), imads, clock_hz)
-        cluster_ms = imads / (launch["cluster"] * IMAD_PER_CLK_PER_SM * clock_hz) * 1e3
+        cost = kernel_cost("radix2_ntt", n)
+        imads = cost["int32_ops"]
+        bnd, by = cost_bound("radix2_ntt", n, clock_hz)
+        cluster_ms = imads / (launch["cluster"] * H100_IMAD_PER_CLK_PER_SM * clock_hz) * 1e3
         stage = lambda: nk.radix2_stages(x, T, None, nk.butterfly)
         assert torch.equal(stage(), nk.radix2_ntt(x, T)), f"K4 stage path n={n}: != whole-transform form"
         st_ms, st_launches = device_ms(torch, stage, 50, ("butterfly_kernel",))
@@ -415,7 +428,7 @@ def check_k4(torch, clock_hz, rows, card, gen):
                           wrapper_ms=st_wrapper)
         rows.setdefault("K4_sites", []).append(dict(
             t, n=n, shape=f"(8, {n})", launch=launch, max_abs_err=err, bound_ms=bnd, bound_by=by,
-            cluster_bound_ms=cluster_ms, products=radix2_products(n), stage_path=stage_path))
+            cluster_bound_ms=cluster_ms, products=cost["products"], stage_path=stage_path))
         say("K4", f"radix2_ntt n=2^{log_n} (both ways match; forward timed), bound {bnd:.6f} ms ({by}), "
             f"on the cluster's {launch['cluster']} SMs {cluster_ms:.6f} ms; {launch['ctas']} CTAs in clusters "
             f"of {launch['cluster']} x {launch['threads']} threads, {launch['shared_bytes']} shared bytes a CTA",
@@ -456,8 +469,7 @@ def check_k3(torch, clock_hz, rows, card, gen):
         tw = ntt.small_table(g, False)
         t = timed(torch, lambda: nk.small_ntt(x, tw), lambda: nk.small_ntt_plain(x, tw), 200, ("small_ntt_kernel",))
         launch = nk.small_ntt_shape(g, L)
-        products = sum(g // 2 - (g >> s) for s in range(1, g.bit_length()))  # j != 0 butterflies
-        bnd, by = bound_ms(2 * g * 32 * L + 16 * g, products * IMADS_PER_MONT_MUL * L, clock_hz)
+        bnd, by = cost_bound("small_ntt", L, clock_hz, g=g)  # its j != 0 butterflies
         rows.setdefault("K3_sites", []).append(dict(
             t, site=site, shape=f"(8, {g}, {L})", launch=launch, max_abs_err=err, bound_ms=bnd, bound_by=by))
         say("K3", f"small_ntt {site} g={g} L={L} (both ways match; forward timed), bound {bnd:.6f} ms ({by}), "
@@ -477,6 +489,7 @@ def check_msm_forms(torch, clock_hz, rows, card, gen):
     from go_snark_study_tpu_torch.ops import point_add as pa
     from go_snark_study_tpu_torch.ops.curve_ops import G1Batch, tree_map
     from go_snark_study_tpu_torch.ops.limbs import FieldKernels
+    from go_snark_study_tpu_torch.profiling import kernel_cost
 
     Kq = FieldKernels(C.Q, DEVICE)
     top_q = C.Q >> 224
@@ -530,29 +543,30 @@ def check_msm_forms(torch, clock_hz, rows, card, gen):
                 continue
             # times and bounds of the incomplete forms, the main path's
             ab = 96 * arity
+            imads = lambda kind, count: kernel_cost(kind, count, group=arity)["int32_ops"]
             forms = (
                 ("apply", mk.APPLY, ("msm_apply_kernel",), lambda: mk.apply(pts, plan, arity, False),
                  lambda: mk.apply_plain(pts, plan, arity, False),
-                 n * ab + k * wg * m * 21 + wg * p_cap * ab, apply_adds * PRODUCTS["madd", arity],
+                 n * ab + k * wg * m * 21 + wg * p_cap * ab, imads("point_add_mixed", apply_adds),
                  f"K {k} x {wg * m} lanes", 1),
                 ("seg-scan", mk.SEG_SCAN, ("msm_seg_step_kernel",),
                  lambda: mk.seg_scan(w_a, sdig, arity, False), lambda: mk.seg_scan_plain(w_a, sdig, arity, False),
-                 seg_steps * (2 * wg * p_cap * ab + 4 * wg * p_cap), seg_adds * PRODUCTS["jadd", arity],
+                 seg_steps * (2 * wg * p_cap * ab + 4 * wg * p_cap), imads("point_add", seg_adds),
                  f"{seg_steps} steps x {wg} x {p_cap} lanes", seg_steps),
                 ("reduce-1", mk.REDUCE, ("msm_reduce1_kernel",), lambda: mk.reduce(bk, d_chunk, arity, False),
                  lambda: mk.reduce_plain(bk, d_chunk, arity, False),
                  wg * m_buckets * ab + 2 * wg * q_chunk * ab,
-                 wg * q_chunk * (2 * d_chunk - 1) * PRODUCTS["jadd", arity],
+                 imads("point_add", wg * q_chunk * (2 * d_chunk - 1)),
                  f"{wg} x {q_chunk} lanes x {2 * d_chunk - 1} adds", 1),
                 ("reduce-2", mk.REDUCE, ("msm_reduce2_kernel",), lambda: mk.reduce(bk, d_chunk, arity, False),
                  None, 2 * wg * q_chunk * ab + wg * ab,
-                 wg * ((3 * q_chunk - 1) * PRODUCTS["jadd", arity]
-                       + (d_chunk.bit_length() - 1) * PRODUCTS["dbl", arity]),
+                 imads("point_add", wg * (3 * q_chunk - 1))
+                 + imads("point_double", wg * (d_chunk.bit_length() - 1)),
                  f"{wg} lanes x {3 * q_chunk - 1} adds + {d_chunk.bit_length() - 1} doublings", 1),
             )
-            for site, kern, names, fn, plain, nbytes, prods, shape, per_call in forms:
+            for site, kern, names, fn, plain, nbytes, ops, shape, per_call in forms:
                 t = timed(torch, fn, plain, 5 if site == "seg-scan" else 10, names, plain_reps=1)
-                bnd, by = bound_ms(nbytes / per_call, prods * IMADS_PER_MONT_MUL / per_call, clock_hz)
+                bnd, by = bound_ms(nbytes / per_call, ops / per_call, clock_hz)
                 rows.setdefault("K1_sites", []).append(dict(
                     t, site=site, kernel=kern.name, group=f"G{arity}", shape=shape, max_abs_err=0,
                     bound_ms=bnd, bound_by=by))
@@ -990,6 +1004,184 @@ func main(private s0, public s1):
 
 
 
+def cli_call(torch, argv):
+    """One call of the port's CLI as a user makes it, on the card (main's
+    device=None): (exit code, wall seconds)."""
+    from go_snark_study_tpu_torch.cli import main as cli_main
+
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    return rc, time.perf_counter() - t0
+
+
+def device_pk_leaves(dpk) -> dict:
+    """{name: tensor} of every tensor of a DevicePk."""
+    out = {}
+    for f in ("at", "b1", "b2", "cdelta", "ptau"):
+        for ci, coord in enumerate(getattr(dpk, f)):
+            for k, t in enumerate(coord if isinstance(coord, tuple) else (coord,)):
+                out[f"{f}.{ci}.{k}"] = t
+    return out
+
+
+def profiled(fn):
+    """Run ``fn`` with GOSNARK_MSM_PROFILE=1 and a fresh profiler: (the
+    profiler's report for the H100, {label: {"s", "calls"}})."""
+    from go_snark_study_tpu_torch.profiling import PROFILER
+
+    os.environ["GOSNARK_MSM_PROFILE"] = "1"
+    PROFILER.reset()
+    try:
+        fn()
+    finally:
+        del os.environ["GOSNARK_MSM_PROFILE"]
+    rows = {k: dict(s=PROFILER.times[k], calls=PROFILER.calls[k]) for k in sorted(PROFILER.times)}
+    return PROFILER.report(chip="h100"), rows
+
+
+def say_profile(what: str, report: str, card: str):
+    print(f"[cli] profile of {what} (GOSNARK_MSM_PROFILE=1)  ({card}):")
+    for ln in report.splitlines():
+        print(f"[cli]   {ln}")
+
+
+def run_cli(torch, card: str, paths: dict):
+    """The --fast CLI flow at 2^16 constraints on the card, through the
+    binary key file; then the key file's round trip, setups with and
+    without host lists, and the first prove with and without a warmup."""
+    import tempfile
+
+    from go_snark_study_tpu_torch.cli.main import _load_compiled_sparse
+    from go_snark_study_tpu_torch.models.groth16 import verify_proof
+    from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
+    from go_snark_study_tpu_torch.utils import keyfile
+
+    src, priv, pub = chain_source((1 << DSL_LOG) - 1)
+    secs, per_prove = {}, []
+    old = os.getcwd()
+
+    def run(tag, argv, want_rc):
+        rc, t = cli_call(torch, argv)
+        assert rc == want_rc, f"[cli] {tag}: exit code {rc}, expected {want_rc}"
+        secs.setdefault(tag, []).append(t)
+        print(f"[cli] {tag}: exit {rc}, {t:.3f} s  ({card})")
+
+    with tempfile.TemporaryDirectory(prefix="cli-") as d:
+        os.chdir(d)
+        try:
+            with open("chain.circuit", "w") as fh:
+                fh.write(src)
+            with open("privateInputs.json", "w") as fh:
+                json.dump([str(x) for x in priv], fh)
+            with open("publicInputs.json", "w") as fh:
+                json.dump([str(x) for x in pub], fh)
+            reset_counts()
+            run("compile --fast", ["compile", "chain.circuit", "--fast"], 0)
+            run("groth16 trustedsetup --fast", ["groth16", "trustedsetup", "--fast"], 0)
+            for _ in range(2):
+                before = read_counts()
+                run("groth16 genproofs --fast", ["groth16", "genproofs", "--fast"], 0)
+                after = read_counts()
+                c = {k: after[k] - before[k] for k in after}
+                k1 = sum(c[k] for k in K1_FORMS)
+                assert k1 <= 80, f"[cli] K1 launched {k1} times in one genproofs"
+                assert c["K3"] == K3_PER_PROVE, f"[cli] K3 launched {c['K3']} times in one genproofs"
+                per_prove.append(c)
+            run("groth16 verify", ["groth16", "verify"], 0)
+            with open("publicInputs.json", "w") as fh:
+                json.dump([str(pub[0] + 1)], fh)
+            run("groth16 verify, tampered public", ["groth16", "verify"], 1)
+            with open("publicInputs.json", "w") as fh:
+                json.dump([str(x) for x in pub], fh)
+            counts = read_counts()
+            for k in K1_FORMS + ("K2", "K3"):
+                assert counts[k] > 0, f"{k} not launched on the cli path"
+            key_bytes = os.path.getsize(keyfile.KEYFILE)
+            report, profile = profiled(lambda: run("groth16 genproofs --fast, GOSNARK_MSM_PROFILE=1",
+                                                   ["groth16", "genproofs", "--fast"], 0))
+            for label in ("msm.plan", "msm.apply+badd", "msm.reduce", "prove.msm", "cli.prove"):
+                assert label in profile, f"[cli] no {label} in the profile"
+            _, r1cs = _load_compiled_sparse()
+        finally:
+            os.chdir(old)
+    print(f"[cli] launches per genproofs: {json.dumps(per_prove)}; whole flow {json.dumps(counts)}  ({card})")
+    print(f"[cli] key file {key_bytes} bytes  ({card})")
+    say_profile("one genproofs --fast", report, card)
+
+    # one engine: setups with and without host lists, in turns, its
+    # fixed-base tables built first
+    fast = FastGroth16()
+    fast.warmup(families=(), fixed_base=True)
+    setup_s = {"materialize_host": [], "no_host_lists": []}
+    for mat in (False, True, True, False):
+        t0 = time.perf_counter()
+        setup = fast.setup(r1cs, rng=random.Random(11), materialize_host=mat)
+        torch.cuda.synchronize()
+        setup_s["materialize_host" if mat else "no_host_lists"].append(time.perf_counter() - t0)
+        assert len(setup.pk.g1.at) == (r1cs.n_signals if mat else 0)
+        if not mat:
+            own = setup
+    print(f"[cli] setup s in turns (no host lists, host lists, host lists, no host lists): "
+          f"{json.dumps(setup_s)}  ({card})")
+
+    # the key file round trip, every tensor equal on the card
+    src_setup, src_name = (paths["main"]["setup"], "main") if "main" in paths else (own, "cli")
+    with tempfile.TemporaryDirectory(prefix="key-") as d:
+        path = os.path.join(d, keyfile.KEYFILE)
+        t0 = time.perf_counter()
+        keyfile.save_fast_setup(path, src_setup.strip_toxic())
+        t_save = time.perf_counter() - t0
+        rt_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = keyfile.load_fast_setup(path)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    want, got = src_setup.pk._device, loaded.pk._device
+    for f in ("n", "m", "lo", "m_pad", "mp_pad", "n_pad"):
+        assert getattr(got, f) == getattr(want, f), f"[cli] key file round trip: {f} differs"
+    gl, wl = device_pk_leaves(got), device_pk_leaves(want)
+    assert gl.keys() == wl.keys()
+    for name in wl:
+        assert gl[name].is_cuda and torch.equal(gl[name], wl[name]), f"[cli] key file round trip: {name} differs"
+    assert loaded.vk.ic == src_setup.vk.ic and loaded.pk.g2.delta == src_setup.pk.g2.delta
+    print(f"[cli] key file round trip of {src_name}'s 2^{DSL_LOG} setup: {len(wl)} tensors equal; {rt_bytes} bytes, "
+          f"save {t_save:.3f} s, load onto the card {t_load:.3f} s  ({card})")
+
+    # the first prove on a fresh engine, without and with a warmup
+    pk, rng = own.pk, random.Random(12)
+
+    def prove(engine):
+        t0 = time.perf_counter()
+        proof = engine.prove(r1cs, pk, rng=rng)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t0
+
+    cold = FastGroth16()
+    _, t_cold = prove(cold)
+    _, t_second = prove(cold)
+    warm_report, warm_profile = profiled(lambda: prove(cold))  # a third prove on that engine
+    say_profile("a third prove on that engine", warm_report, card)
+    warm = FastGroth16()
+    t0 = time.perf_counter()
+    steps = warm.warmup(domains=(1 << DSL_LOG,), fixed_base=True)
+    t_warmup = time.perf_counter() - t0
+    proof, t_warm = prove(warm)
+    publics = r1cs.witness[1 : r1cs.n_public + 1]
+    assert verify_proof(own.vk, proof, publics), "[cli] the proof after the warmup does not verify"
+    print(f"[cli] first prove on a fresh engine {t_cold:.3f} s, its second {t_second:.3f} s; warmup "
+          f"{t_warmup:.3f} s ({json.dumps(steps)}), then the first prove {t_warm:.3f} s  ({card})")
+    line = dict(card=card, constraints=r1cs.n_constraints, command_s=secs, launches_per_genproofs=per_prove,
+                key_bytes=key_bytes, roundtrip=dict(setup=src_name, bytes=rt_bytes, save_s=t_save, load_s=t_load,
+                                                    tensors_equal=len(wl)),
+                setup_s=setup_s, first_prove_s=t_cold, second_prove_s=t_second, warmup_s=t_warmup,
+                warmup_steps_s=steps, first_prove_after_warmup_s=t_warm, profile=profile,
+                profile_report=report.splitlines(), warm_prove_profile=warm_profile,
+                warm_prove_profile_report=warm_report.splitlines())
+    print(json.dumps({"cli": line}))
+    return dict(counts=counts)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1067,6 +1259,8 @@ def main(argv=None) -> int:
         paths["dsl"] = run_dsl(torch, card, paths.get("main"), route)
     if "parity" in phases:
         paths["parity"] = run_parity(card)
+    if "cli" in phases:
+        paths["cli"] = run_cli(torch, card, paths)
 
     kernels = []
     objs = kernel_objects()

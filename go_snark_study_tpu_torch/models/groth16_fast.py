@@ -16,25 +16,30 @@ Mirrors ``go_snark_study_tpu/models/groth16_fast.py`` (``FastGroth16``,
     below, K2 for every product), and combines the window sums on the host;
   * proofs verify under :func:`.groth16.verify_proof`.
 
-Left for later: the JAX package's ``warmup`` (its compile families have no
-counterpart here) and ``prove_sharded`` (multi-device).  The JAX prover's
-three-thread pool existed for concurrent XLA compiles; the port enqueues
-the G1, G2 and H sides in that order on one stream.
+``warmup`` builds the kernels and the per-domain tables ahead of the first
+prove (the JAX package's compile families have no counterpart here).  Left
+for later: ``prove_sharded`` (multi-device).  The JAX prover's three-thread
+pool existed for concurrent XLA compiles; the port enqueues the G1, G2 and
+H sides in that order on one stream.  With ``GOSNARK_MSM_PROFILE=1`` the
+prover's phases are timed into ``profiling.PROFILER`` (``prove.*``).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
+from .. import _build
 from ..bn128 import constants as C
 from ..ops.curve_ops import G1Batch, G2Batch, tree_map
 from ..ops.fixed_base import FixedBaseEngine, scalar_windows
 from ..ops.limbs import FieldKernels, resolve_device
 from ..ops.msm import MSMEngine, combine_window_sums, scalars_to_limbs
 from ..ops.ntt import NTTEngine
+from ..profiling import span
 from ..synthetic import SparseR1CS
 from .context import ProtocolContext, default_context
 from .groth16 import Pk, Proof, Setup, Toxic
@@ -102,6 +107,61 @@ class FastGroth16:
         return self._fb_g2
 
     # ------------------------------------------------------------------
+    def warmup(
+        self,
+        families=("big",),
+        domains=(),
+        g2: bool = True,
+        fixed_base: bool = False,
+    ) -> dict:
+        """Do ahead of time what the first setup or prove would otherwise
+        pay for, with the JAX package's signature.  On the card it builds
+        every kernel (``_build.build_all``; the CPU runs the plain versions
+        and builds nothing).  ``families``: the port has one chunk family
+        (the tiled MSM path), so any non-empty value runs the MSM pieces
+        (plan, apply, merge scan, reduction) once on identity points with
+        zero scalars at the tiled path's smallest lane count, in G1 and,
+        with ``g2``, in G2.  ``domains``: for each evaluation-domain size,
+        build the NTT tables and run the H pipeline once on zeros.
+        ``fixed_base``: build the fixed-base tables and run one
+        ``batch_mul([1])`` per group, plus one ``to_affine``.  Idempotent:
+        a second call finds everything cached.  Returns each step's
+        seconds (the JAX package only logs them); there is no thread pool,
+        as there are no compiles to overlap."""
+        dev = self.device
+        steps = {}
+
+        def step(label, fn):
+            t0 = time.perf_counter()
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            steps[label] = time.perf_counter() - t0
+
+        if dev.type == "cuda":
+            step("build", _build.build_all)
+        if families:
+            eng = self.msm_g1
+            lanes = eng.tile_threshold
+            c = eng.window_bits_for(lanes)
+            limbs = torch.zeros((8, lanes), dtype=torch.int32, device=dev)
+            plans = eng.make_plans(limbs, c)
+            groups = ((eng, self.g1b, "msm_g1"),) + (((self.msm_g2, self.g2b, "msm_g2"),) if g2 else ())
+            for msm, bg, label in groups:
+                step(label, lambda: msm.window_sums_eager(bg.zeros(lanes), limbs, c, plans))
+        for nd in domains:
+            nd = int(nd)
+            zeros = torch.zeros((8, nd), dtype=torch.int32, device=dev)
+            step(f"h[2^{nd.bit_length() - 1}]",
+                 lambda: self._get_h_jit(nd, self._pad_for(nd))(zeros, zeros, zeros, *self._ntt_args(nd)))
+        if fixed_base:
+            step("fb_g1", lambda: self.fb_g1.batch_mul([1]))
+            if g2:
+                step("fb_g2", lambda: self.fb_g2.batch_mul([1]))
+            step("affine_g1", lambda: self.g1b.to_affine(self.g1b.zeros(8192)))
+        return steps
+
+    # ------------------------------------------------------------------
     def _lagrange_at_tau(self, n: int, tau: int):
         """L_j(tau) = w^j (tau^n - 1) / (n (tau - w^j)) for j = 0..n-1,
         via one batched inversion (Montgomery's trick)."""
@@ -157,11 +217,12 @@ class FastGroth16:
         )
 
     # ------------------------------------------------------------------
-    def setup(self, r1cs: SparseR1CS, rng=None) -> Setup:
+    def setup(self, r1cs: SparseR1CS, rng=None, materialize_host: bool = True) -> Setup:
         """Evaluation-form trusted setup; same artifact shapes as the JAX
         package's (groth16.go:94-222).  The proving key stays
-        device-resident (``pk._device``) and is also materialised as host
-        lists."""
+        device-resident (``pk._device``); host lists are materialised only
+        when ``materialize_host`` (needed for JSON serialization; the
+        binary key file and the prover need none)."""
         ctx = self.ctx
         r = C.R
         n = _next_pow2(r1cs.n_constraints)
@@ -229,13 +290,14 @@ class FastGroth16:
         vk.g2.delta = pk.g2.delta
         vk.ic = self.fb_g1.batch_mul([x * inv_gamma % r for x in bac[:lo]])
 
-        dpk = pk._device
-        first = lambda pt, k: tree_map(lambda x: x[..., :k].contiguous(), pt)
-        pk.g1.at = self.g1b.unpack(first(dpk.at, m))
-        pk.g1.bacgamma = self.g1b.unpack(first(dpk.b1, m))
-        pk.g2.bacgamma = self.g2b.unpack(first(dpk.b2, m))
-        pk.bacdelta = [g1.zero()] * lo + self.g1b.unpack(first(dpk.cdelta, m - lo))
-        pk.powers_tau_delta = self.g1b.unpack(first(dpk.ptau, n)) + self.fb_g1.batch_mul(ladder[n:])
+        if materialize_host:
+            dpk = pk._device
+            first = lambda pt, k: tree_map(lambda x: x[..., :k].contiguous(), pt)
+            pk.g1.at = self.g1b.unpack(first(dpk.at, m))
+            pk.g1.bacgamma = self.g1b.unpack(first(dpk.b1, m))
+            pk.g2.bacgamma = self.g2b.unpack(first(dpk.b2, m))
+            pk.bacdelta = [g1.zero()] * lo + self.g1b.unpack(first(dpk.cdelta, m - lo))
+            pk.powers_tau_delta = self.g1b.unpack(first(dpk.ptau, n)) + self.fb_g1.batch_mul(ladder[n:])
         return setup
 
     # ------------------------------------------------------------------
@@ -330,10 +392,13 @@ class FastGroth16:
         r_rand = ctx.rand_fr(rng)
         s_rand = ctx.rand_fr(rng)
 
+        dv = self.device
         # host -> device: witness limbs + evaluation-form row combinations
-        w_limbs = scalars_to_limbs(w + [0] * (dpk.m_pad - len(w)), r, self.device)
-        wp_limbs = scalars_to_limbs(w[lo:] + [0] * (dpk.mp_pad - (len(w) - lo)), r, self.device)
-        a_e, b_e, c_e = r1cs.row_evals()
+        with span("prove.witness", dv):
+            w_limbs = scalars_to_limbs(w + [0] * (dpk.m_pad - len(w)), r, dv)
+            wp_limbs = scalars_to_limbs(w[lo:] + [0] * (dpk.mp_pad - (len(w) - lo)), r, dv)
+        with span("prove.row_evals"):
+            a_e, b_e, c_e = r1cs.row_evals()
         pad = n - len(a_e)
         dev = lambda v: self.Kr.pack(list(v) + [0] * pad)
 
@@ -343,18 +408,21 @@ class FastGroth16:
         # ONE sort/compaction plan for the witness scalars, shared by the
         # three same-scalar MSMs (at, b1 in G1 AND b2 in G2 — plans carry no
         # group data)
-        plans_w = self.msm_g1.make_plans(w_limbs, c_m)
+        with span("prove.plans", dv):
+            plans_w = self.msm_g1.make_plans(w_limbs, c_m)
 
         # G1 side, G2 side, H side, enqueued in order on one stream; the
         # flags stay on the device until all five MSMs are in flight
-        s_at = self.msm_g1.window_sums_eager(dpk.at, w_limbs, c_m, plans_w)
-        s_b1 = self.msm_g1.window_sums_eager(dpk.b1, w_limbs, c_m, plans_w)
-        s_cd = self.msm_g1.window_sums_eager(dpk.cdelta, wp_limbs, c_p)
-        s_b2 = self.msm_g2.window_sums_eager(dpk.b2, w_limbs, c_m, plans_w)
-        h_digits = self._get_h_jit(n, dpk.n_pad)(
-            dev(a_e), dev(b_e), dev(c_e), *self._ntt_args(n)
-        )
-        s_h = self.msm_g1.window_sums_eager(dpk.ptau, h_digits, c_h)
+        with span("prove.msm", dv):
+            s_at = self.msm_g1.window_sums_eager(dpk.at, w_limbs, c_m, plans_w)
+            s_b1 = self.msm_g1.window_sums_eager(dpk.b1, w_limbs, c_m, plans_w)
+            s_cd = self.msm_g1.window_sums_eager(dpk.cdelta, wp_limbs, c_p)
+            s_b2 = self.msm_g2.window_sums_eager(dpk.b2, w_limbs, c_m, plans_w)
+        with span("prove.h_inputs", dv):
+            a_d, b_d, c_d = dev(a_e), dev(b_e), dev(c_e)
+        with span("prove.h", dv):
+            h_digits = self._get_h_jit(n, dpk.n_pad)(a_d, b_d, c_d, *self._ntt_args(n))
+            s_h = self.msm_g1.window_sums_eager(dpk.ptau, h_digits, c_h)
 
         # degeneracy-flag check: incomplete-formula MSMs re-run through the
         # complete-engine twin if their flag fired (cryptographically never
@@ -366,29 +434,32 @@ class FastGroth16:
                 sums, _ = eng.fallback_engine().window_sums_eager(pts, limbs, c, plans)
             return sums
 
-        s_at = chk(self.msm_g1, s_at, dpk.at, w_limbs, c_m, plans_w)
-        s_b1 = chk(self.msm_g1, s_b1, dpk.b1, w_limbs, c_m, plans_w)
-        s_cd = chk(self.msm_g1, s_cd, dpk.cdelta, wp_limbs, c_p)
-        s_h = chk(self.msm_g1, s_h, dpk.ptau, h_digits, c_h)
-        sums_b2 = chk(self.msm_g2, s_b2, dpk.b2, w_limbs, c_m, plans_w)
+        with span("prove.flags", dv):
+            s_at = chk(self.msm_g1, s_at, dpk.at, w_limbs, c_m, plans_w)
+            s_b1 = chk(self.msm_g1, s_b1, dpk.b1, w_limbs, c_m, plans_w)
+            s_cd = chk(self.msm_g1, s_cd, dpk.cdelta, wp_limbs, c_p)
+            s_h = chk(self.msm_g1, s_h, dpk.ptau, h_digits, c_h)
+            sums_b2 = chk(self.msm_g2, s_b2, dpk.b2, w_limbs, c_m, plans_w)
 
-        comb1 = lambda sums, c: combine_window_sums(g1, self.g1b.unpack(sums), c)
-        pi_a = comb1(s_at, c_m)
-        pi_b_g1 = comb1(s_b1, c_m)
-        pi_b = combine_window_sums(g2, self.g2b.unpack(sums_b2), c_m)
-        pi_c = comb1(s_cd, c_p)
-        pi_h = comb1(s_h, c_h)
+        with span("prove.combine"):
+            comb1 = lambda sums, c: combine_window_sums(g1, self.g1b.unpack(sums), c)
+            pi_a = comb1(s_at, c_m)
+            pi_b_g1 = comb1(s_b1, c_m)
+            pi_b = combine_window_sums(g2, self.g2b.unpack(sums_b2), c_m)
+            pi_c = comb1(s_cd, c_p)
+            pi_h = comb1(s_h, c_h)
 
-        pi_a = g1.add(pi_a, pk.g1.alpha)
-        pi_a = g1.add(pi_a, g1.mul_scalar(pk.g1.delta, r_rand))
-        pi_b_g1 = g1.add(pi_b_g1, pk.g1.beta)
-        pi_b = g2.add(pi_b, pk.g2.beta)
-        pi_b_g1 = g1.add(pi_b_g1, g1.mul_scalar(pk.g1.delta, s_rand))
-        pi_b = g2.add(pi_b, g2.mul_scalar(pk.g2.delta, s_rand))
+        with span("prove.assemble"):
+            pi_a = g1.add(pi_a, pk.g1.alpha)
+            pi_a = g1.add(pi_a, g1.mul_scalar(pk.g1.delta, r_rand))
+            pi_b_g1 = g1.add(pi_b_g1, pk.g1.beta)
+            pi_b = g2.add(pi_b, pk.g2.beta)
+            pi_b_g1 = g1.add(pi_b_g1, g1.mul_scalar(pk.g1.delta, s_rand))
+            pi_b = g2.add(pi_b, g2.mul_scalar(pk.g2.delta, s_rand))
 
-        pi_c = g1.add(pi_c, pi_h)
-        pi_c = g1.add(pi_c, g1.mul_scalar(pi_a, s_rand))
-        pi_c = g1.add(pi_c, g1.mul_scalar(pi_b_g1, r_rand))
-        neg_rs = (-(r_rand * s_rand)) % r
-        pi_c = g1.add(pi_c, g1.mul_scalar(pk.g1.delta, neg_rs))
+            pi_c = g1.add(pi_c, pi_h)
+            pi_c = g1.add(pi_c, g1.mul_scalar(pi_a, s_rand))
+            pi_c = g1.add(pi_c, g1.mul_scalar(pi_b_g1, r_rand))
+            neg_rs = (-(r_rand * s_rand)) % r
+            pi_c = g1.add(pi_c, g1.mul_scalar(pk.g1.delta, neg_rs))
         return Proof(pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)

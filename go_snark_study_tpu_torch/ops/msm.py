@@ -28,6 +28,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..profiling import span
 from . import msm_kernels as _mk
 from .curve_ops import tree_leaves, tree_map
 from .limbs import LIMBS, ints_to_limbs_np, to_u64
@@ -337,25 +338,34 @@ class MSMEngine:
         """Affine point pytree (N lanes) + (8, N) scalar limbs ->
         (window sums, bad flag), sum leaves (8, W).  ``plans`` (from
         :meth:`make_plans`, possibly of another engine) skips the digit and
-        sort work."""
+        sort work.
+
+        GOSNARK_MSM_PROFILE=1 fences and times each phase of the tiled
+        path (``msm.plan``, ``msm.apply+badd``, ``msm.reduce``) into
+        ``profiling.PROFILER``; it changes the asynchronous dispatch, so it
+        is for analysis runs only.  The port has no cross-chunk add: the
+        label keeps the JAX package's name."""
         n = tree_leaves(aff_points)[0].shape[-1]
         if plans is None:
-            plans = self.make_plans(limbs, c, n)
+            with span("msm.plan", self.device, when=n >= self.tile_threshold):
+                plans = self.make_plans(limbs, c, n)
         else:
             assert plans["c"] == c and plans["n"] == n, (plans["c"], plans["n"], c, n)
         if plans["mode"] == "small":
             return self._apply_small_impl(aff_points, plans["plan"], c)
         parts, bad = [], self._false()
-        for plan in plans["plans"]:
-            b_g, f_g = self._apply_impl(aff_points, plan, c)
-            parts.append(b_g)
-            bad = bad | f_g
-        buckets = (
-            parts[0]
-            if len(parts) == 1
-            else tree_map(lambda *xs: torch.cat(xs, dim=1), *parts)
-        )
-        sums, f_r = self._reduce_buckets(buckets, c)
+        with span("msm.apply+badd", self.device):
+            for plan in plans["plans"]:
+                b_g, f_g = self._apply_impl(aff_points, plan, c)
+                parts.append(b_g)
+                bad = bad | f_g
+            buckets = (
+                parts[0]
+                if len(parts) == 1
+                else tree_map(lambda *xs: torch.cat(xs, dim=1), *parts)
+            )
+        with span("msm.reduce", self.device):
+            sums, f_r = self._reduce_buckets(buckets, c)
         if plans["wpad"]:
             sums = tree_map(lambda c_: c_[:, : num_windows(c)].contiguous(), sums)
         return sums, bad | f_r

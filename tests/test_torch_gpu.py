@@ -164,3 +164,59 @@ def test_accelerated_flows_on_card(cuda_device, protocol):
     assert same_points(setup, hsetup) > 20
     assert same_points(proof, hproof) >= 3
     assert not mod.verify_proof(setup.vk, proof, [36])
+
+
+@pytest.mark.gpu
+def test_cli_fast_flow_on_card(cuda_device, tmp_path, monkeypatch):
+    """The --fast CLI flow on the card (``main(argv)``, device=None) on a
+    30-link chain: compile, setup into the key file, prove, verify, and a
+    tampered public input that fails; with GOSNARK_MSM_PROFILE=1 a prove
+    records its phases."""
+    import json
+
+    from chip_smoke import chain_source
+    from go_snark_study_tpu_torch import profiling
+    from go_snark_study_tpu_torch.cli import main
+
+    src, priv, pub = chain_source(30)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "chain.circuit").write_text(src)
+    (tmp_path / "privateInputs.json").write_text(json.dumps([str(x) for x in priv]))
+    (tmp_path / "publicInputs.json").write_text(json.dumps([str(x) for x in pub]))
+    assert main(["compile", "chain.circuit", "--fast"]) == 0
+    assert main(["groth16", "trustedsetup", "--fast"]) == 0
+    monkeypatch.setenv("GOSNARK_MSM_PROFILE", "1")
+    profiling.PROFILER.reset()
+    assert main(["groth16", "genproofs", "--fast"]) == 0
+    assert {"cli.prove", "prove.msm", "prove.h"} <= set(profiling.PROFILER.times)
+    assert main(["groth16", "verify"]) == 0
+    (tmp_path / "publicInputs.json").write_text(json.dumps([str(pub[0] + 1)]))
+    assert main(["groth16", "verify"]) == 1
+
+
+@pytest.mark.gpu
+def test_keyfile_roundtrip_on_card(cuda_device, tmp_path):
+    """A setup on the card without host lists, saved and loaded back onto
+    the card: every tensor equal, and a proof from the loaded key
+    verifies."""
+    from go_snark_study_tpu_torch.models.groth16 import verify_proof
+    from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
+    from go_snark_study_tpu_torch.synthetic import mul_chain_r1cs
+    from go_snark_study_tpu_torch.utils import keyfile
+
+    from chip_smoke import device_pk_leaves
+
+    r1cs = mul_chain_r1cs(N_CONSTRAINTS, seed=CIRCUIT_SEED)
+    fast = FastGroth16()
+    setup = fast.setup(r1cs, rng=random.Random(RNG_SEED), materialize_host=False)
+    assert setup.pk.g1.at == []
+    path = str(tmp_path / keyfile.KEYFILE)
+    keyfile.save_fast_setup(path, setup.strip_toxic())
+    loaded = keyfile.load_fast_setup(path)
+    got, want = device_pk_leaves(loaded.pk._device), device_pk_leaves(setup.pk._device)
+    assert got.keys() == want.keys()
+    for name, t in want.items():
+        assert got[name].is_cuda and torch.equal(got[name], t), name
+    proof = fast.prove(r1cs, loaded.pk, rng=random.Random(1))
+    publics = r1cs.witness[1 : r1cs.n_public + 1]
+    assert verify_proof(loaded.vk, proof, publics)
