@@ -64,8 +64,33 @@ Phases:
            equal; and the first prove on a fresh engine without and with a
            warmup, beside a second prove and a profiled third.
 
+  sharded  the multi-device prover (go_snark_study_tpu_torch.parallel) on
+           ranks spawned by parallel.launch.run_ranks, after the kernels are
+           built in this process: NCCL with one rank at 2^16 constraints;
+           gloo with two ranks sharing the card at 2^16, with the sharded
+           four-step NTT at 2^16 (bit for bit the single-device forward in
+           its permuted order, and inverse(forward(x)) == x) and one sharded
+           prove step at 2^16 points and domain; gloo on a 2x2 (host, data)
+           mesh of four ranks on the card at 2^12, with
+           dry_shape_check(22, (2, 8)).  On every rank: a seeded setup, two
+           prove_sharded proofs and two FastGroth16.prove proofs from the
+           same rng state (the second of each timed); they must be equal as
+           group elements, the sharded proof must verify and fail on a wrong
+           public input, and every rank of a run must return the same proof.
+           Each rank sends back its launch counts (setup, sharded proofs and
+           the NTT and step checks; not the single-device proofs): summed,
+           they are the path's, and K1's four forms, K2, K3 and K4 must each
+           be above 0.  Outside the counts, every run holds each wrapper
+           against its plain version, bit for bit with equal flags, on its
+           own inputs: K1's MSM forms on rank 0's witness plan (G1 and G2;
+           complete too where a flag fired), K4 and K2 on the sharded NTT's
+           steps, K1's jadd on the tree add's window sums.  Then
+           scaling.run's weak-scaling rows for 1 and 2 gloo ranks.  Prints
+           one {"sharded": ...} line.
+
 The kernel launch counts are set to 0 just before a path is driven and read
-just after (the parity flows: before and after each setup and proof).  Each
+just after (the parity flows: before and after each setup and proof; the
+sharded path: in each rank, before its setup and after its checks).  Each
 of the dsl, parity and cli phases prints one JSON line of its numbers.  The second-to-last line is one JSON object with a row per
 kernel; the last line is {"ok": true, "device": {...}}.  Any failure exits
 non-zero before that line.  Without a CUDA device the script exits 1.
@@ -82,7 +107,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "main", "small", "dsl", "parity", "cli")
+PHASES = ("build", "kernels", "main", "small", "dsl", "parity", "cli", "sharded")
 DEVICE = "cuda"
 MAIN_LOG, SMALL_LOG = 16, 12  # constraints of the main path and of the radix-2 path
 DSL_LOG = 16  # the dsl phase: a flat-code chain of 2^16 - 1 links, 2^16 constraints
@@ -105,6 +130,14 @@ K4_PER_PROVE = 7  # radix-2 transforms per prove below 2^14 (groth16_fast._h_pip
 # m_pad = 67,584 points = K 33 x m 2048, p_cap 3200, 1088 buckets = Q 17 x D 64
 MSM_C, MSM_POINTS = 11, 67584
 FIXED_BASE_LANES = 67584  # K1 per-lane jadd of the setup's fixed-base commits
+# the sharded phase: (label, backend, ranks, mesh layout, log2 constraints,
+# NTT and prove-step checks, 2^22 shape check); the 2x2 run is cut to 2^12
+SHARDED_RUNS = (
+    ("nccl x1", "nccl", 1, 1, 16, False, False),
+    ("gloo x2", "gloo", 2, 2, 16, True, False),
+    ("gloo 2x2", "gloo", 4, (2, 2), 12, False, True),
+)
+SCALING_PER_RANK = 1 << 15  # the 2^16 witness MSM's lanes over 2 ranks
 
 
 def card_line() -> str:
@@ -321,7 +354,8 @@ def check_kernels(torch, clock_hz, rows, card):
         got, want = pa.point_add("jadd", arity, p1, p2), pa.point_add_plain("jadd", arity, p1, p2)
         gl, wl = pa._leaves(got, arity), pa._leaves(want, arity)
         assert all(torch.equal(g, w) for g, w in zip(gl, wl)), f"K1 fixed-base G{arity}: kernel != plain"
-        t = timed(torch, lambda: pa.point_add("jadd", arity, p1, p2), None, 100, k1)
+        t = timed(torch, lambda: pa.point_add("jadd", arity, p1, p2),
+                  lambda: pa.point_add_plain("jadd", arity, p1, p2), 100, k1)
         bnd, by = cost_bound("point_add", n, clock_hz, group=arity)
         rows.setdefault("K1_sites", []).append(dict(
             t, site="fixed-base (per-lane jadd)", group=f"G{arity}", shape=f"{n} lanes",
@@ -583,29 +617,6 @@ def check_msm_forms(torch, clock_hz, rows, card, gen):
 K1_FORMS = ("K1", "K1 apply", "K1 seg-scan", "K1 reduce")
 
 
-def kernel_objects():
-    from go_snark_study_tpu_torch.ops.mont_mul import MONT_MUL
-    from go_snark_study_tpu_torch.ops.msm_kernels import APPLY, REDUCE, SEG_SCAN
-    from go_snark_study_tpu_torch.ops.ntt_kernels import BUTTERFLY, RADIX2_NTT, SMALL_NTT
-    from go_snark_study_tpu_torch.ops.point_add import POINT_ADD
-
-    return {"K1": POINT_ADD, "K1 apply": APPLY, "K1 seg-scan": SEG_SCAN, "K1 reduce": REDUCE,
-            "K2": MONT_MUL, "K3": SMALL_NTT, "K4": RADIX2_NTT, "K4 stage": BUTTERFLY}
-
-
-def reset_counts():
-    from go_snark_study_tpu_torch.ops import point_add as pa
-
-    for k in kernel_objects().values():
-        k.launches = 0
-    for key in pa.INSTANCE_LAUNCHES:
-        pa.INSTANCE_LAUNCHES[key] = 0
-
-
-def read_counts():
-    return {name: k.launches for name, k in kernel_objects().items()}
-
-
 def profile_prove(torch, fast, r1cs, pk, rng, tag: str, card: str):
     """One more prove under torch.profiler: device time by kernel, and the
     device's busy share of the prove's wall time (the kernels run on one
@@ -648,6 +659,7 @@ def run_path(torch, tag: str, r1cs, seed_rng: int, timed_second: bool, card: str
     from go_snark_study_tpu_torch.models.groth16 import verify_proof
     from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
     from go_snark_study_tpu_torch.ops import point_add as pa
+    from go_snark_study_tpu_torch.profiling import launch_counts, reset_counts
 
     rng = random.Random(seed_rng)
     fast = FastGroth16()  # device=None: the card, as a user calls it
@@ -658,19 +670,19 @@ def run_path(torch, tag: str, r1cs, seed_rng: int, timed_second: bool, card: str
     setup = fast.setup(r1cs, rng=rng)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
-    setup_counts = read_counts()
+    setup_counts = launch_counts()
     t0 = time.perf_counter()
     proof = fast.prove(r1cs, setup.pk, rng=rng)
     torch.cuda.synchronize()
     t_prove1 = time.perf_counter() - t0
-    before = read_counts()
+    before = launch_counts()
     t_prove2 = None
     if timed_second:
         t0 = time.perf_counter()
         proof = fast.prove(r1cs, setup.pk, rng=rng)
         torch.cuda.synchronize()
         t_prove2 = time.perf_counter() - t0
-    counts = read_counts()
+    counts = launch_counts()
     prove_counts = {k: counts[k] - (before[k] if timed_second else setup_counts[k]) for k in counts}
     instances = {f"{f}/G{a}": c for (f, a), c in pa.INSTANCE_LAUNCHES.items() if c}
     peak = torch.cuda.max_memory_allocated()
@@ -708,6 +720,7 @@ def compare_stage_path(torch, path: dict, card: str):
     then a profiled stage-path prove; the stage-path proof must verify."""
     from go_snark_study_tpu_torch.models.groth16 import verify_proof
     from go_snark_study_tpu_torch.ops import ntt_kernels as nk
+    from go_snark_study_tpu_torch.profiling import launch_counts, reset_counts
 
     fast, r1cs, pk, rng = path["fast"], path["r1cs"], path["setup"].pk, path["rng"]
     tag = f"2^{SMALL_LOG} stage path"
@@ -726,7 +739,7 @@ def compare_stage_path(torch, path: dict, card: str):
         proof = fast.prove(r1cs, pk, rng=rng)
         torch.cuda.synchronize()
         times[form].append(time.perf_counter() - t0)
-        counts = read_counts()
+        counts = launch_counts()
         want = (0, K4_PER_PROVE * SMALL_LOG) if form == "stage" else (K4_PER_PROVE, 0)
         assert (counts["K4"], counts["K4 stage"]) == want, f"{form} path: K4 launches {counts}"
         if form == "stage":
@@ -875,6 +888,7 @@ def parity_run(proto: str, bundle, seed: int, card_hooks, tag: str):
     ``fallback_hits``: the proof's MSMs whose flag fired."""
     from go_snark_study_tpu_torch import api
     from go_snark_study_tpu_torch.models import accel, groth16, pinocchio
+    from go_snark_study_tpu_torch.profiling import launch_counts, reset_counts
 
     mod = groth16 if proto == "groth16" else pinocchio
     flow = api.groth16_flow if proto == "groth16" else api.pinocchio_flow
@@ -893,7 +907,7 @@ def parity_run(proto: str, bundle, seed: int, card_hooks, tag: str):
         t0 = time.perf_counter()
         setup = mod.generate_trusted_setup(len(w), circuit, bundle.alphas, bundle.betas, bundle.gammas, rng=rng)
         out["setup_s"] = time.perf_counter() - t0
-        counts["setup"] = read_counts()
+        counts["setup"] = launch_counts()
         reset_counts()
         t0 = time.perf_counter()
         if proto == "groth16":
@@ -901,7 +915,7 @@ def parity_run(proto: str, bundle, seed: int, card_hooks, tag: str):
         else:
             proof = mod.generate_proofs(circuit, setup.pk, w, bundle.px)
         out["prove_s"] = time.perf_counter() - t0
-        counts["prove"] = read_counts()
+        counts["prove"] = launch_counts()
         out["fallback_hits"] = sum(e.fallback_hits for e in engines) - hits0
         t0 = time.perf_counter()
         ok = mod.verify_proof(setup.vk, proof, publics)
@@ -913,7 +927,7 @@ def parity_run(proto: str, bundle, seed: int, card_hooks, tag: str):
             t0 = time.perf_counter()
             fsetup, fproof, fok = flow(bundle, rng=random.Random(seed))
             out["flow_s"] = time.perf_counter() - t0
-            counts["flow"] = read_counts()
+            counts["flow"] = launch_counts()
             assert fok, f"[{tag}] {proto}_flow does not verify"
             assert same_points(fsetup, setup) and same_points(fproof, proof), f"[{tag}] {proto}_flow differs"
     finally:
@@ -955,6 +969,7 @@ def run_parity(card: str):
     64, the default): both verify, a wrong public fails, every key and proof
     point from the card equals the host's as a group element."""
     from go_snark_study_tpu_torch import api
+    from go_snark_study_tpu_torch.profiling import kernel_objects
 
     cubic = """
 func main(private s0, public s1):
@@ -1055,6 +1070,7 @@ def run_cli(torch, card: str, paths: dict):
     from go_snark_study_tpu_torch.cli.main import _load_compiled_sparse
     from go_snark_study_tpu_torch.models.groth16 import verify_proof
     from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
+    from go_snark_study_tpu_torch.profiling import launch_counts, reset_counts
     from go_snark_study_tpu_torch.utils import keyfile
 
     src, priv, pub = chain_source((1 << DSL_LOG) - 1)
@@ -1080,9 +1096,9 @@ def run_cli(torch, card: str, paths: dict):
             run("compile --fast", ["compile", "chain.circuit", "--fast"], 0)
             run("groth16 trustedsetup --fast", ["groth16", "trustedsetup", "--fast"], 0)
             for _ in range(2):
-                before = read_counts()
+                before = launch_counts()
                 run("groth16 genproofs --fast", ["groth16", "genproofs", "--fast"], 0)
-                after = read_counts()
+                after = launch_counts()
                 c = {k: after[k] - before[k] for k in after}
                 k1 = sum(c[k] for k in K1_FORMS)
                 assert k1 <= 80, f"[cli] K1 launched {k1} times in one genproofs"
@@ -1094,7 +1110,7 @@ def run_cli(torch, card: str, paths: dict):
             run("groth16 verify, tampered public", ["groth16", "verify"], 1)
             with open("publicInputs.json", "w") as fh:
                 json.dump([str(x) for x in pub], fh)
-            counts = read_counts()
+            counts = launch_counts()
             for k in K1_FORMS + ("K2", "K3"):
                 assert counts[k] > 0, f"{k} not launched on the cli path"
             key_bytes = os.path.getsize(keyfile.KEYFILE)
@@ -1182,6 +1198,76 @@ def run_cli(torch, card: str, paths: dict):
     return dict(counts=counts)
 
 
+def run_sharded(torch, card: str, paths: dict):
+    """The sharded phase (see the module docstring).  Every rank's failure
+    raises here, through run_ranks."""
+    from go_snark_study_tpu_torch import _build
+    from go_snark_study_tpu_torch.parallel import checks
+    from go_snark_study_tpu_torch.parallel.launch import run_ranks
+    from go_snark_study_tpu_torch.parallel.scaling import run as scaling_run
+    from go_snark_study_tpu_torch.profiling import kernel_objects
+
+    _build.build_all()  # here, before any spawn: the ranks load build/torch_kernels/
+    counts = {name: 0 for name in kernel_objects()}
+    line = dict(card=card, runs={})
+    for label, backend, world, layout, log_n, checks_ntt, shape_22 in SHARDED_RUNS:
+        t0 = time.perf_counter()
+        ranks = run_ranks(checks.card_run, world, backend, "cuda", log_n, layout, None,
+                          checks_ntt, checks_ntt, shape_22)
+        wall = time.perf_counter() - t0
+        for r, out in enumerate(ranks):
+            tag = f"[sharded {label} 2^{log_n}] rank {r} on {out['device']}"
+            assert out["equal"], f"{tag}: prove_sharded's proof is not FastGroth16.prove's"
+            assert out["verifies"], f"{tag}: the sharded proof does not verify"
+            assert out["wrong_public_fails"], f"{tag}: the sharded proof verifies with a wrong public"
+            assert out["proof"] == ranks[0]["proof"], f"{tag}: not rank 0's proof"
+            if checks_ntt:
+                ntt = out["ntt"][layout]
+                assert ntt["matches_single"], f"{tag}: FourStepNTT.forward != NTTEngine.forward permuted"
+                assert ntt["roundtrip"], f"{tag}: FourStepNTT inverse(forward(x)) != x"
+                assert out["step"]["h_shape"] == (8, 1 << log_n), f"{tag}: prove step {out['step']}"
+            if shape_22:
+                assert out["shape_22"]["ok"], f"{tag}: {out['shape_22']}"
+            for name, n in out["counts"].items():
+                counts[name] += n
+            for h in out["held"]:
+                assert h["equal"] and h["flags_equal"], f"{tag}: {h['kernel']} ({h['shape']}): kernel != plain {h}"
+            if out["held"]:
+                print(f"{tag}: kernel == plain, bit for bit with equal flags, on this path's own inputs: "
+                      + "; ".join(f"{h['kernel']} {h['shape']}" for h in out["held"]) + f"  ({card})")
+            print(f"{tag}: setup {out['setup_s']:.3f} s, prove_sharded {out['sharded_prove_s'][0]:.3f} / "
+                  f"{out['sharded_prove_s'][1]:.3f} s, FastGroth16.prove {out['single_prove_s'][0]:.3f} / "
+                  f"{out['single_prove_s'][1]:.3f} s (first / second); equal proofs, verifies, wrong public "
+                  f"fails; degeneracy re-runs {out['fallbacks']}  ({card})")
+            if checks_ntt:
+                print(f"{tag}: FourStepNTT 2^{log_n} forward matches the single-device NTT permuted, inverse "
+                      f"round-trips, forward {ntt['forward_s'][0]:.4f} / {ntt['forward_s'][1]:.4f} s (first / second); "
+                      f"prove step {out['step']['seconds']:.3f} s "
+                      f"({card})")
+        line["runs"][label] = dict(
+            backend=backend, ranks=world, layout=layout, constraints=1 << log_n, wall_s=wall,
+            setup_s=[o["setup_s"] for o in ranks], sharded_prove_s=[o["sharded_prove_s"] for o in ranks],
+            single_prove_s=[o["single_prove_s"] for o in ranks], fallbacks=[o["fallbacks"] for o in ranks],
+            devices=[o["device"] for o in ranks], launches_per_rank=[o["counts"] for o in ranks],
+            held_against_plain=[o["held"] for o in ranks],
+            ntt=[o.get("ntt") for o in ranks], step=[o.get("step") for o in ranks],
+            shape_22=ranks[0].get("shape_22"))
+        print(f"[sharded {label}] {world} rank(s) in {wall:.1f} s wall (spawn included)  ({card})")
+    for k in K1_FORMS + ("K2", "K3", "K4"):
+        assert counts[k] > 0, f"{k} not launched on the sharded path: {counts}"
+    print(f"[sharded] launches on the path, all ranks: {json.dumps(counts)}  ({card})")
+    rows = scaling_run(SCALING_PER_RANK, world_sizes=(1, 2), backend="gloo", device=None)
+    assert all(r["correct"] for r in rows), rows
+    for r in rows:
+        print(f"[sharded] weak scaling: {r['devices']} gloo rank(s) on {r['device']}, {r['points']} points, "
+              f"{r['seconds']:.4f} s  ({card})")
+    if "main" in paths:
+        line["main_prove_s"] = paths["main"]["prove_s"]
+    line.update(launches=counts, scaling=rows)
+    print(json.dumps({"sharded": line}))
+    return dict(counts=counts)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1198,6 +1284,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from go_snark_study_tpu_torch import _build
+    from go_snark_study_tpu_torch.profiling import kernel_objects
     from go_snark_study_tpu_torch.synthetic import mul_chain_r1cs
 
     card = card_line()
@@ -1261,6 +1348,8 @@ def main(argv=None) -> int:
         paths["parity"] = run_parity(card)
     if "cli" in phases:
         paths["cli"] = run_cli(torch, card, paths)
+    if "sharded" in phases:
+        paths["sharded"] = run_sharded(torch, card, paths)
 
     kernels = []
     objs = kernel_objects()

@@ -17,8 +17,11 @@ The results are the same group elements as the host loops give.  A hook
 declines (returns None, and the host loop runs) only for a batch below
 ``min_size``; a failure on the card raises.  ``device=None`` is the card and
 raises without one; ``device="cpu"`` runs the kernels' plain versions.  The
-engines are built once per device.  The JAX package's sharded branch
-(a mesh argument) is not carried over.
+engines are built once per device, the sharded ones once per device and
+mesh.  With a ``mesh`` (:mod:`..parallel.mesh`), :func:`enable_gpu_msm`
+installs :class:`..parallel.sharded_msm.ShardedMSMEngine` pairs: every rank
+of the mesh must then run the same protocol calls, as each MSM is a
+collective.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ __all__ = [
     "disable_gpu_msm",
     "disable_gpu_setup",
     "msm_engines",
+    "sharded_msm_engines",
     "fixed_base_engines",
 ]
 
@@ -77,10 +81,23 @@ def fixed_base_engines(device=None) -> Tuple[FixedBaseEngine, FixedBaseEngine]:
     return _ENGINES[key]
 
 
-def enable_gpu_msm(device=None, min_size: int = 64) -> None:
-    """Run every MSM of at least ``min_size`` points on ``device``
-    (JAX: ``enable_tpu_msm``)."""
-    g1e, g2e = msm_engines(device)
+def sharded_msm_engines(mesh, device=None):
+    """The (G1, G2) sharded engines of ``device`` over ``mesh``, built on
+    first use."""
+    dev, (g1b, g2b) = _batches(device)
+    key = ("sharded", str(dev), id(mesh))
+    if key not in _ENGINES:
+        from ..parallel.sharded_msm import ShardedMSMEngine
+
+        bn = default_context().bn
+        _ENGINES[key] = (ShardedMSMEngine(g1b, bn.g1, C.R, mesh), ShardedMSMEngine(g2b, bn.g2, C.R, mesh))
+    return _ENGINES[key]
+
+
+def enable_gpu_msm(device=None, min_size: int = 64, mesh=None) -> None:
+    """Run every MSM of at least ``min_size`` points on ``device``, over the
+    ranks of ``mesh`` when one is given (JAX: ``enable_tpu_msm``)."""
+    g1e, g2e = msm_engines(device) if mesh is None else sharded_msm_engines(mesh, device)
 
     def g1_backend(points, scalars):
         return g1e.msm(points, scalars) if len(points) >= min_size else None

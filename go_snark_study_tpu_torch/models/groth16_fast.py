@@ -17,11 +17,12 @@ Mirrors ``go_snark_study_tpu/models/groth16_fast.py`` (``FastGroth16``,
   * proofs verify under :func:`.groth16.verify_proof`.
 
 ``warmup`` builds the kernels and the per-domain tables ahead of the first
-prove (the JAX package's compile families have no counterpart here).  Left
-for later: ``prove_sharded`` (multi-device).  The JAX prover's three-thread
-pool existed for concurrent XLA compiles; the port enqueues the G1, G2 and
-H sides in that order on one stream.  With ``GOSNARK_MSM_PROFILE=1`` the
-prover's phases are timed into ``profiling.PROFILER`` (``prove.*``).
+prove (the JAX package's compile families have no counterpart here).
+``prove_sharded`` proves over a mesh of ranks (:mod:`..parallel`).  The JAX
+prover's three-thread pool existed for concurrent XLA compiles; the port
+enqueues the G1, G2 and H sides in that order on one stream.  With
+``GOSNARK_MSM_PROFILE=1`` the prover's phases are timed into
+``profiling.PROFILER`` (``prove.*``).
 """
 
 from __future__ import annotations
@@ -90,6 +91,7 @@ class FastGroth16:
         self.msm_g2 = MSMEngine(self.g2b, bn.g2, C.R)
         self._fb_g1: Optional[FixedBaseEngine] = None
         self._fb_g2: Optional[FixedBaseEngine] = None
+        self._sharded_provers: dict = {}
 
     # -- fixed-base engines (their host tables are built on first use) --
     @property
@@ -376,6 +378,22 @@ class FastGroth16:
             return h_plain
 
         return h_digits
+
+    # ------------------------------------------------------------------
+    def prove_sharded(self, r1cs: SparseR1CS, pk: Pk, mesh, rng=None) -> Proof:
+        """Prove over ``mesh`` (:mod:`..parallel.mesh`): called on every
+        rank with the same host-materialised ``pk`` and an ``rng`` in the
+        same state, it returns the same proof there.  Each rank keeps its
+        slice of the key on its device (cached on the Pk) and runs the five
+        MSMs over it; the window sums are combined on the host.  Proof
+        assembly is :meth:`prove`'s and verifies under the same verifier.
+        One prover per mesh, cached."""
+        from ..parallel.sharded_prover import ShardedFastProver
+
+        key = id(mesh)
+        if key not in self._sharded_provers:
+            self._sharded_provers[key] = ShardedFastProver(self, mesh)
+        return self._sharded_provers[key].prove(r1cs, pk, rng=rng)
 
     # ------------------------------------------------------------------
     def prove(self, r1cs: SparseR1CS, pk: Pk, rng=None) -> Proof:

@@ -1,0 +1,252 @@
+"""The multi-device Groth16 prover.
+
+Counterpart of ``go_snark_study_tpu/parallel/sharded_prover.py``, one
+process per rank:
+
+  * **ShardedDevicePk** — each rank packs and affine-normalises (K2) only
+    its own slice of the host-materialised proving key, once, identity
+    padded to ``local`` lanes, and keeps it on its device (cached on the
+    ``Pk``).
+  * **the rank's pipeline** — the port has no chunk families, so a shard
+    runs the unchunked ``make_plans`` / ``window_sums_eager`` pipeline of
+    :class:`..ops.msm.MSMEngine` (K1's forms), which is what the JAX
+    package runs on the CPU.  The witness plan is built once per proof and
+    shared by the At / BACGamma-G1 / BACGamma-G2 MSMs.
+  * **combine** — each rank's W window sums are fetched with
+    ``all_gather`` and added on the host in rank order d = 0..D-1, so every
+    rank assembles the same proof.
+  * **H(x)** — as in JAX, the single-device coset pipeline: every rank runs
+    it whole and takes its slice of the H digits, so no collective is
+    needed and the values are the same everywhere.
+
+Degeneracy flags are ORed across ranks before the complete-formula re-run,
+so every rank re-runs together.
+
+``rng`` must be in the same state on every rank (it draws r and s): ranks
+seeded alike return the same proof.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..bn128 import constants as C
+from ..models.groth16 import Pk, Proof
+from ..ops.curve_ops import tree_leaves
+from ..ops.msm import MSMEngine, bucket_count, combine_window_sums, num_windows, scalars_to_limbs
+from .mesh import Mesh, all_gather, any_rank
+from .sharded_msm import _unflatten
+
+__all__ = ["ShardedDevicePk", "ShardedFastProver", "dry_shape_check"]
+
+
+def dry_shape_check(n_log2: int = 22, mesh_shape=(2, 8)) -> dict:
+    """The port's sharded MSM layout at a tier beyond the hardware at hand
+    (the 2^22 mul-chain instance on a (host, data) = (2, 8) grid by
+    default), computed from the engine's own rules without allocating a
+    tensor or needing a rank: lanes per shard (``pad_quantum``), window
+    width (``window_bits_for``), windows,
+    buckets per window (``bucket_count``) and the plan's compaction width
+    (``_plan_impl``'s ``p_cap``).  The keys are the JAX package's;
+    ``chunks_per_shard`` is 1, as the port has no chunk families."""
+    eng = MSMEngine(None, None, C.R)  # its lane and window rules need no group
+    d = 1
+    for s in mesh_shape:
+        d *= int(s)
+    m = (1 << n_log2) + 3  # signals of the mul-chain tier instance
+    per = -(-m // d)
+    q = eng.pad_quantum(per)
+    local = -(-per // q) * q
+    c = eng.window_bits_for(local)
+    w = num_windows(c)
+    m_buckets, _ = bucket_count(c)
+    if local >= eng.tile_threshold:
+        _, lanes = eng._tile_split(local)
+        p_cap = min(local, m_buckets + lanes)
+        p_cap += (-p_cap) % 128
+    else:  # the small path: one sort over all windows, no compaction
+        p_cap = None
+    return {
+        "tier": f"2^{n_log2}",
+        "mesh": dict(zip(("host", "data"), mesh_shape)),
+        "devices": d,
+        "local_lanes": local,
+        "chunks_per_shard": 1,
+        "window_bits": c,
+        "windows": w,
+        "buckets_per_window": m_buckets,
+        "plan_p_cap": p_cap,
+        "ok": True,
+    }
+
+
+@dataclass
+class ShardedDevicePk:
+    """This rank's slice of the proving key: affine leaves (8, local)."""
+
+    n: int
+    m: int
+    lo: int
+    local_m: int  # per-shard lanes of at/b1/b2
+    local_mp: int  # per-shard lanes of cdelta
+    local_n: int  # per-shard lanes of ptau
+    at: object = None
+    b1: object = None
+    b2: object = None
+    cdelta: object = None
+    ptau: object = None
+
+
+class ShardedFastProver:
+    """Multi-device prover bound to one mesh; engines shared with the
+    ``FastGroth16`` it wraps, which must live on the mesh's device type."""
+
+    def __init__(self, fast, mesh: Mesh):
+        if fast.device.type != mesh.device.type:
+            raise ValueError(f"prover on {fast.device}, mesh on {mesh.device}")
+        self.fast = fast
+        self.mesh = mesh
+        self.ndev = mesh.size()
+        self.rank = mesh.my_rank()
+
+    # ------------------------------------------------------------------
+    # layout
+    # ------------------------------------------------------------------
+    def _local_lanes(self, n: int, eng) -> int:
+        per = -(-n // self.ndev)
+        q = eng.pad_quantum(per)
+        return -(-per // q) * q
+
+    def _my_points(self, bg, host_pts, local: int):
+        """This rank's slice of host Jacobian points -> affine leaves
+        (8, local), identity-padded (absorbed by the branchless law)."""
+        lo = self.rank * local
+        pts = list(host_pts[lo : lo + local])
+        zero = (0, 0, 0) if bg._arity == 1 else ((0, 0), (0, 0), (0, 0))
+        pts += [zero] * (local - len(pts))
+        return bg.to_affine(bg.pack(pts))
+
+    def shard_pk(self, pk: Pk, n: int, lo: int) -> ShardedDevicePk:
+        """This rank's slice of the device key, from a host-materialised
+        Pk; built once and cached on the Pk."""
+        cached = getattr(pk, "_sharded", None)
+        if cached is not None and cached[0] is self.mesh:
+            return cached[1]
+        g1b, g2b = self.fast.g1b, self.fast.g2b
+        eng = self.fast.msm_g1
+        m = len(pk.g1.at)
+        local_m = self._local_lanes(m, eng)
+        local_mp = self._local_lanes(m - lo, eng)
+        local_n = self._local_lanes(n, eng)
+        spk = ShardedDevicePk(
+            n=n,
+            m=m,
+            lo=lo,
+            local_m=local_m,
+            local_mp=local_mp,
+            local_n=local_n,
+            at=self._my_points(g1b, pk.g1.at, local_m),
+            b1=self._my_points(g1b, pk.g1.bacgamma, local_m),
+            b2=self._my_points(g2b, pk.g2.bacgamma, local_m),
+            cdelta=self._my_points(g1b, pk.bacdelta[lo:], local_mp),
+            ptau=self._my_points(g1b, pk.powers_tau_delta[:n], local_n),
+        )
+        pk._sharded = (self.mesh, spk)
+        return spk
+
+    def shard_scalars(self, scalars, local: int) -> torch.Tensor:
+        """Field scalars -> this rank's (8, local) limbs, zero padded."""
+        lo = self.rank * local
+        mine = list(scalars[lo : lo + local])
+        return scalars_to_limbs(mine + [0] * (local - len(mine)), C.R, self.fast.device)
+
+    def _my_rows(self, rows: torch.Tensor, local: int) -> torch.Tensor:
+        """(8, n) limbs -> this rank's (8, local) columns, zero padded."""
+        lo = min(self.rank * local, rows.shape[1])
+        mine = rows[:, lo : lo + local]
+        return torch.nn.functional.pad(mine, (0, local - mine.shape[1])).contiguous()
+
+    def window_sums(self, eng, points, plans: dict):
+        """This rank's pipeline -> (host window-sum points of the whole
+        mesh, whether any rank's flag fired).  Each rank's (8, W) sums are
+        gathered (a few KB) and added on the host in rank order."""
+        sums, bad = eng.window_sums_eager(points, None, plans["c"], plans)
+        group = self.mesh.flat_group
+        gathered = [all_gather(leaf, group) for leaf in tree_leaves(sums)]
+        bad = any_rank(bad, group, self.fast.device)
+        host = eng.host_group
+        combined = None
+        for d in range(self.ndev):
+            pts = eng.bg.unpack(_unflatten(sums, [g[d] for g in gathered]))
+            combined = pts if combined is None else [host.add(x, y) for x, y in zip(combined, pts)]
+        return combined, bad
+
+    def _msm(self, eng, points, plans: dict):
+        pts, bad = self.window_sums(eng, points, plans)
+        if bad and not eng.complete:
+            eng.fallback_hits += 1
+            pts, _ = self.window_sums(eng.fallback_engine(), points, plans)
+        return combine_window_sums(eng.host_group, pts, plans["c"])
+
+    # ------------------------------------------------------------------
+    def prove(self, r1cs, pk: Pk, rng=None) -> Proof:
+        """Same proof assembly as FastGroth16.prove (groth16.go:225-279);
+        the five MSMs run data-parallel over the mesh from this rank's
+        slice of the key."""
+        from ..models.groth16_fast import _next_pow2
+
+        fast = self.fast
+        ctx = fast.ctx
+        r = C.R
+        g1, g2 = ctx.bn.g1, ctx.bn.g2
+        w = [x % r for x in r1cs.witness]
+        n = _next_pow2(r1cs.n_constraints)
+        lo = r1cs.n_public + 1
+        spk = self.shard_pk(pk, n, lo)
+        eng1, eng2 = fast.msm_g1, fast.msm_g2
+
+        r_rand = ctx.rand_fr(rng)
+        s_rand = ctx.rand_fr(rng)
+
+        # window widths follow the LOCAL lane count, the pipeline each
+        # shard actually runs
+        c_m = eng1.window_bits_for(spk.local_m)
+        c_p = eng1.window_bits_for(spk.local_mp)
+        c_h = eng1.window_bits_for(spk.local_n)
+
+        w_limbs = self.shard_scalars(w, spk.local_m)
+        wp_limbs = self.shard_scalars(w[lo:], spk.local_mp)
+        plans_w = eng1.make_plans(w_limbs, c_m)
+        plans_p = eng1.make_plans(wp_limbs, c_p)
+
+        pi_a = self._msm(eng1, spk.at, plans_w)
+        pi_b_g1 = self._msm(eng1, spk.b1, plans_w)
+        pi_b = self._msm(eng2, spk.b2, plans_w)
+        pi_c = self._msm(eng1, spk.cdelta, plans_p)
+
+        # H(x) via the single-device coset pipeline on every rank, then this
+        # rank's slice of the H digits for the ptau MSM
+        a_e, b_e, c_e = r1cs.row_evals()
+        pad = n - len(a_e)
+        dev = lambda v: fast.Kr.pack(list(v) + [0] * pad)
+        h_digits = fast._get_h_jit(n, n)(dev(a_e), dev(b_e), dev(c_e), *fast._ntt_args(n))
+        h_mine = self._my_rows(h_digits, spk.local_n)
+        plans_h = eng1.make_plans(h_mine, c_h)
+        pi_h = self._msm(eng1, spk.ptau, plans_h)
+
+        pi_a = g1.add(pi_a, pk.g1.alpha)
+        pi_a = g1.add(pi_a, g1.mul_scalar(pk.g1.delta, r_rand))
+        pi_b_g1 = g1.add(pi_b_g1, pk.g1.beta)
+        pi_b = g2.add(pi_b, pk.g2.beta)
+        pi_b_g1 = g1.add(pi_b_g1, g1.mul_scalar(pk.g1.delta, s_rand))
+        pi_b = g2.add(pi_b, g2.mul_scalar(pk.g2.delta, s_rand))
+
+        pi_c = g1.add(pi_c, pi_h)
+        pi_c = g1.add(pi_c, g1.mul_scalar(pi_a, s_rand))
+        pi_c = g1.add(pi_c, g1.mul_scalar(pi_b_g1, r_rand))
+        neg_rs = (-(r_rand * s_rand)) % r
+        pi_c = g1.add(pi_c, g1.mul_scalar(pk.g1.delta, neg_rs))
+        return Proof(pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)
+

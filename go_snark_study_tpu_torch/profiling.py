@@ -11,7 +11,10 @@ Mirrors ``go_snark_study_tpu/profiling.py``.  This module provides:
   * ``report()`` — a table of measured times vs model;
   * ``span(label, device)`` — a ``timed`` block that records only when
     ``GOSNARK_MSM_PROFILE=1`` (the MSM hook of ``ops/msm.py`` and the
-    prover's host phases use it).
+    prover's host phases use it);
+  * ``kernel_objects`` / ``reset_counts`` / ``launch_counts`` — every
+    kernel of the port by its short name, and its launch count in this
+    process.
 
 Imports nothing beyond the standard library at module load; ``torch`` is
 imported only to fence.
@@ -35,6 +38,9 @@ __all__ = [
     "ChipModel",
     "CHIP_MODELS",
     "kernel_cost",
+    "kernel_objects",
+    "reset_counts",
+    "launch_counts",
     "IMADS_PER_MONT_MUL",
     "POINT_PRODUCTS",
 ]
@@ -134,6 +140,35 @@ def kernel_cost(kind: str, n: int, group: int = 1, g: int = 16) -> dict:
     else:
         raise KeyError(kind)
     return {"int32_ops": IMADS_PER_MONT_MUL * products, "bytes": nbytes, "products": products}
+
+
+def kernel_objects() -> dict:
+    """Every kernel of the port by its short name: K1's per-lane form and
+    its three MSM forms, K2, K3, K4's whole-transform form and its stage
+    form (each a ``_build.Kernel`` with a ``launches`` count)."""
+    from .ops.mont_mul import MONT_MUL
+    from .ops.msm_kernels import APPLY, REDUCE, SEG_SCAN
+    from .ops.ntt_kernels import BUTTERFLY, RADIX2_NTT, SMALL_NTT
+    from .ops.point_add import POINT_ADD
+
+    return {"K1": POINT_ADD, "K1 apply": APPLY, "K1 seg-scan": SEG_SCAN, "K1 reduce": REDUCE,
+            "K2": MONT_MUL, "K3": SMALL_NTT, "K4": RADIX2_NTT, "K4 stage": BUTTERFLY}
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count in this process to 0, K1's per-instance
+    counts included."""
+    from .ops import point_add as pa
+
+    for k in kernel_objects().values():
+        k.launches = 0
+    for key in pa.INSTANCE_LAUNCHES:
+        pa.INSTANCE_LAUNCHES[key] = 0
+
+
+def launch_counts() -> dict:
+    """{short name: launches in this process since the last reset}."""
+    return {name: k.launches for name, k in kernel_objects().items()}
 
 
 def _fence(sync) -> None:

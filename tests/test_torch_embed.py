@@ -215,6 +215,31 @@ def test_profiler_records_and_reports(monkeypatch):
     assert profiling.PROFILER.calls["test.span"] == 1
 
 
+def test_launch_count_registry():
+    """profiling.kernel_objects names every kernel of the port once, with
+    its source and the TPU kernel it replaces; reset_counts zeroes every
+    count (K1's per-instance ones too) and launch_counts reads them.  A CPU
+    tensor takes the plain version, which counts nothing."""
+    from go_snark_study_tpu_torch import profiling
+    from go_snark_study_tpu_torch.bn128 import constants as C
+    from go_snark_study_tpu_torch.ops import mont_mul as mm, point_add as pa
+
+    objs = profiling.kernel_objects()
+    assert list(objs) == ["K1", "K1 apply", "K1 seg-scan", "K1 reduce", "K2", "K3", "K4", "K4 stage"]
+    assert len({id(k) for k in objs.values()}) == len(objs)
+    for k in objs.values():
+        assert os.path.exists(os.path.join(REPO, k.source_path))
+        assert k.replaces.startswith("go_snark_study_tpu/ops/pallas_"), k.replaces
+    objs["K2"].launches = 3
+    pa.INSTANCE_LAUNCHES[("jadd", 1)] = 2
+    assert profiling.launch_counts()["K2"] == 3
+    profiling.reset_counts()
+    assert set(profiling.launch_counts().values()) == {0} and set(pa.INSTANCE_LAUNCHES.values()) == {0}
+    a = torch.zeros(8, 4, dtype=torch.int32)
+    mm.mont_mul(a, a, C.R)
+    assert set(profiling.launch_counts().values()) == {0}
+
+
 def test_warmup_on_the_cpu_is_idempotent():
     """On the CPU there is nothing to build; the H pipeline of a domain runs
     once on zeros, and a second call finds its tables cached."""

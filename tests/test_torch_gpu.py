@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version,
-bit for bit (K1's MSM forms with their flags), and a seeded setup and proof
-against the JAX package's record.
+bit for bit (K1's MSM forms with their flags), a seeded setup and proof
+against the JAX package's record, and a sharded proof over NCCL.
 
 These tests need a CUDA device and skip without one.  They import neither
 ``jax`` nor the JAX package, so they run where JAX is not installed:
@@ -127,6 +127,19 @@ def test_card_proof_matches_jax_record(cuda_device):
     publics = r1cs.witness[1 : r1cs.n_public + 1]
     assert verify_proof(setup.vk, proof, publics)
     assert not verify_proof(setup.vk, proof, [publics[0] + 1])
+
+
+@pytest.mark.gpu
+def test_sharded_proof_nccl_one_rank_on_card(cuda_device):
+    """prove_sharded over NCCL with one rank on the card, at 2^12
+    constraints: the proof is FastGroth16.prove's from the same rng state,
+    it verifies, and a wrong public input fails."""
+    from go_snark_study_tpu_torch.parallel import checks
+    from go_snark_study_tpu_torch.parallel.launch import run_ranks
+
+    (out,) = run_ranks(checks.card_run, 1, "nccl", "cuda", 12, 1)
+    assert out["device"].startswith("cuda")
+    assert out["equal"] and out["verifies"] and out["wrong_public_fails"]
 
 
 @pytest.mark.gpu
