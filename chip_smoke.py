@@ -87,10 +87,35 @@ Phases:
            steps, K1's jadd on the tree add's window sums.  Then
            scaling.run's weak-scaling rows for 1 and 2 gloo ranks.  Prints
            one {"sharded": ...} line.
+  ladder   bench.py's program (bench.py:319-609) through the port's names,
+           on one FastGroth16 (device=None): its warmup (the kernels, the
+           MSM pieces, the H pipeline of each tier's domain, the fixed-base
+           tables); the 2^20 G1 MSM over distinct points k_i·G made on the
+           card (scalars_to_windows, fb_g1.batch_mul_device,
+           to_affine_tiled), window_sums_checked three times, the result
+           equal to (Σ s_i·k_i)·G; the 2^20 NTT (two forwards, the round
+           trip bit for bit, a fresh engine's first forward, 4 evaluations
+           against host Horner values); Montgomery products at 2^20 lanes
+           over fr_kernels(); the tiers 2^14, 2^16, 2^18 and 2^20 of
+           mul_chain_r1cs (setup without host lists with its setup.* spans,
+           a cold and a warm prove, verification, a wrong public that must
+           fail, the key's device bytes, peak memory; K3 per prove must be
+           k3_per_prove's count and, at 2^20, K1's per prove the count the
+           plans predict, with no flag fired; a profiled 2^20 prove and
+           its prove.* spans); the 2^21 G1 MSM.  Then, outside the counts,
+           every kernel on the 2^20 prove's own inputs, timed beside its
+           bound and held against its plain version bit for bit with equal
+           flags: K1's forms on the last, zero-padded window group of the
+           witness plan in G1 and in G2 on that plan (the reduce on every
+           group's buckets), K1's jadd on a fixed-base window step, K2 on
+           the H pipeline's first coset product, K3 on its first three
+           leaves; and to_affine against to_affine_tiled in turns.  Prints
+           one {"ladder": ...} line with bench.py's metric names.
 
 The kernel launch counts are set to 0 just before a path is driven and read
 just after (the parity flows: before and after each setup and proof; the
-sharded path: in each rank, before its setup and after its checks).  Each
+sharded path: in each rank, before its setup and after its checks; the
+ladder: before its warmup and after its 2^21 MSM).  Each
 of the dsl, parity and cli phases prints one JSON line of its numbers.  The second-to-last line is one JSON object with a row per
 kernel; the last line is {"ok": true, "device": {...}}.  Any failure exits
 non-zero before that line.  Without a CUDA device the script exits 1.
@@ -107,7 +132,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "main", "small", "dsl", "parity", "cli", "sharded")
+PHASES = ("build", "kernels", "main", "small", "dsl", "parity", "cli", "sharded", "ladder")
 DEVICE = "cuda"
 MAIN_LOG, SMALL_LOG = 16, 12  # constraints of the main path and of the radix-2 path
 DSL_LOG = 16  # the dsl phase: a flat-code chain of 2^16 - 1 links, 2^16 constraints
@@ -138,6 +163,13 @@ SHARDED_RUNS = (
     ("gloo 2x2", "gloo", 4, (2, 2), 12, False, True),
 )
 SCALING_PER_RANK = 1 << 15  # the 2^16 witness MSM's lanes over 2 ranks
+# the ladder phase: bench.py's program through the port (bench.py:319-609)
+LADDER_TIERS = (14, 16, 18, 20)  # log2 constraints (bench.py:328-332 runs 16, 20, 14, 18)
+LADDER_MSM_LOGS = (20, 21)  # the G1 MSMs of bench.py:352-417 and :583-609
+LADDER_NTT_LOG = 20  # bench.py:419-444
+LADDER_SEED = 0xBEEF  # bench.py's rng
+NTT_SAMPLES = 4  # evaluations checked against a host Horner evaluation
+MODMUL_LANES, MODMUL_CHAIN, MODMUL_REPS = 1 << 20, 8, 4  # bench.py:446-476
 
 
 def card_line() -> str:
@@ -511,6 +543,44 @@ def check_k3(torch, clock_hz, rows, card, gen):
     rows["K3"] = rows["K3_sites"][0]
 
 
+def msm_form_costs(torch, plan, n_points: int, arity: int, bk, d_chunk: int):
+    """K1's four MSM forms at one window group's shapes, for their bounds:
+    (site, kernel, device-name prefixes, bytes, IMADs, shape, launches per
+    call).  Bytes: each input read once, each output written once.  IMADs:
+    the adds these inputs need (apply: the adds that are not run openings;
+    seg-scan: the lanes that merge, per step; reduce: every add of its
+    chains).  ``bk``: the buckets the reduce form takes, (8, W, M)."""
+    from go_snark_study_tpu_torch.ops import msm_kernels as mk
+    from go_snark_study_tpu_torch.ops import point_add as pa
+    from go_snark_study_tpu_torch.profiling import kernel_cost
+
+    k, wg, m = plan["ord3"].shape
+    sdig = plan["comp_dig"]
+    p_cap = sdig.shape[1]
+    w_red, m_buckets = pa._leaves(bk, arity)[0].shape[1:]
+    q_chunk = m_buckets // d_chunk
+    apply_adds = int((plan["mag3"][1:] == plan["mag3"][:-1]).sum())
+    lane = torch.arange(p_cap, device=sdig.device)
+    seg_steps = max(1, (p_cap - 1).bit_length())
+    seg_adds = sum(int(((lane >= (1 << s_)) & (torch.roll(sdig, 1 << s_, -1) == sdig)).sum())
+                   for s_ in range(seg_steps))
+    ab = 96 * arity  # bytes of one Jacobian point
+    imads = lambda kind, count: kernel_cost(kind, count, group=arity)["int32_ops"]
+    return (
+        ("apply", mk.APPLY, ("msm_apply_kernel",), n_points * ab + k * wg * m * 21 + wg * p_cap * ab,
+         imads("point_add_mixed", apply_adds), f"K {k} x {wg * m} lanes", 1),
+        ("seg-scan", mk.SEG_SCAN, ("msm_seg_step_kernel",), seg_steps * (2 * wg * p_cap * ab + 4 * wg * p_cap),
+         imads("point_add", seg_adds), f"{seg_steps} steps x {wg} x {p_cap} lanes", seg_steps),
+        ("reduce-1", mk.REDUCE, ("msm_reduce1_kernel",), w_red * m_buckets * ab + 2 * w_red * q_chunk * ab,
+         imads("point_add", w_red * q_chunk * (2 * d_chunk - 1)),
+         f"{w_red} x {q_chunk} lanes x {2 * d_chunk - 1} adds", 1),
+        ("reduce-2", mk.REDUCE, ("msm_reduce2_kernel",), 2 * w_red * q_chunk * ab + w_red * ab,
+         imads("point_add", w_red * (3 * q_chunk - 1))
+         + imads("point_double", w_red * (d_chunk.bit_length() - 1)),
+         f"{w_red} lanes x {3 * q_chunk - 1} adds + {d_chunk.bit_length() - 1} doublings", 1),
+    )
+
+
 def check_msm_forms(torch, clock_hz, rows, card, gen):
     """K1's MSM forms against their plain versions, bit for bit and with
     equal flags, at the 2^16 shapes: apply on a real plan of random digits,
@@ -523,7 +593,6 @@ def check_msm_forms(torch, clock_hz, rows, card, gen):
     from go_snark_study_tpu_torch.ops import point_add as pa
     from go_snark_study_tpu_torch.ops.curve_ops import G1Batch, tree_map
     from go_snark_study_tpu_torch.ops.limbs import FieldKernels
-    from go_snark_study_tpu_torch.profiling import kernel_cost
 
     Kq = FieldKernels(C.Q, DEVICE)
     top_q = C.Q >> 224
@@ -541,13 +610,6 @@ def check_msm_forms(torch, clock_hz, rows, card, gen):
     sdig = plan["comp_dig"]
     print(f"[kernels] MSM plan at the 2^16 shapes: c {c}, K {k}, Wg {wg}, m {m}, p_cap {p_cap}, "
           f"buckets {m_buckets} = Q {q_chunk} x D {d_chunk}  ({card})")
-    # work these inputs need: adds that are not run openings, seg-scan lanes
-    # that merge, per step
-    apply_adds = int((plan["mag3"][1:] == plan["mag3"][:-1]).sum())
-    lane = torch.arange(p_cap, device=DEVICE)
-    seg_steps = max(1, (p_cap - 1).bit_length())
-    seg_adds = sum(int(((lane >= (1 << s_)) & (torch.roll(sdig, 1 << s_, -1) == sdig)).sum())
-                   for s_ in range(seg_steps))
     eq = lambda a, b, ar: all(torch.equal(x, y) for x, y in zip(pa._leaves(a, ar), pa._leaves(b, ar)))
     fired = {}
     for arity in (1, 2):
@@ -576,29 +638,16 @@ def check_msm_forms(torch, clock_hz, rows, card, gen):
             if complete:
                 continue
             # times and bounds of the incomplete forms, the main path's
-            ab = 96 * arity
-            imads = lambda kind, count: kernel_cost(kind, count, group=arity)["int32_ops"]
-            forms = (
-                ("apply", mk.APPLY, ("msm_apply_kernel",), lambda: mk.apply(pts, plan, arity, False),
-                 lambda: mk.apply_plain(pts, plan, arity, False),
-                 n * ab + k * wg * m * 21 + wg * p_cap * ab, imads("point_add_mixed", apply_adds),
-                 f"K {k} x {wg * m} lanes", 1),
-                ("seg-scan", mk.SEG_SCAN, ("msm_seg_step_kernel",),
-                 lambda: mk.seg_scan(w_a, sdig, arity, False), lambda: mk.seg_scan_plain(w_a, sdig, arity, False),
-                 seg_steps * (2 * wg * p_cap * ab + 4 * wg * p_cap), imads("point_add", seg_adds),
-                 f"{seg_steps} steps x {wg} x {p_cap} lanes", seg_steps),
-                ("reduce-1", mk.REDUCE, ("msm_reduce1_kernel",), lambda: mk.reduce(bk, d_chunk, arity, False),
-                 lambda: mk.reduce_plain(bk, d_chunk, arity, False),
-                 wg * m_buckets * ab + 2 * wg * q_chunk * ab,
-                 imads("point_add", wg * q_chunk * (2 * d_chunk - 1)),
-                 f"{wg} x {q_chunk} lanes x {2 * d_chunk - 1} adds", 1),
-                ("reduce-2", mk.REDUCE, ("msm_reduce2_kernel",), lambda: mk.reduce(bk, d_chunk, arity, False),
-                 None, 2 * wg * q_chunk * ab + wg * ab,
-                 imads("point_add", wg * (3 * q_chunk - 1))
-                 + imads("point_double", wg * (d_chunk.bit_length() - 1)),
-                 f"{wg} lanes x {3 * q_chunk - 1} adds + {d_chunk.bit_length() - 1} doublings", 1),
-            )
-            for site, kern, names, fn, plain, nbytes, ops, shape, per_call in forms:
+            calls = {
+                "apply": (lambda: mk.apply(pts, plan, arity, False), lambda: mk.apply_plain(pts, plan, arity, False)),
+                "seg-scan": (lambda: mk.seg_scan(w_a, sdig, arity, False),
+                             lambda: mk.seg_scan_plain(w_a, sdig, arity, False)),
+                "reduce-1": (lambda: mk.reduce(bk, d_chunk, arity, False),
+                             lambda: mk.reduce_plain(bk, d_chunk, arity, False)),
+                "reduce-2": (lambda: mk.reduce(bk, d_chunk, arity, False), None),
+            }
+            for site, kern, names, nbytes, ops, shape, per_call in msm_form_costs(torch, plan, n, arity, bk, d_chunk):
+                fn, plain = calls[site]
                 t = timed(torch, fn, plain, 5 if site == "seg-scan" else 10, names, plain_reps=1)
                 bnd, by = bound_ms(nbytes / per_call, ops / per_call, clock_hz)
                 rows.setdefault("K1_sites", []).append(dict(
@@ -1198,6 +1247,519 @@ def run_cli(torch, card: str, paths: dict):
     return dict(counts=counts)
 
 
+def k3_per_prove(n: int) -> int:
+    """K3 launches in one prove at domain n, from ops/ntt.py: seven
+    transforms (groth16_fast._h_pipeline: four inverse, three forward), each
+    two column passes of NTTEngine._col_fused, whose leaves are K3 (one leaf
+    of 16 rows, then the rest recursively)."""
+    from go_snark_study_tpu_torch.ops.ntt import NTTEngine
+
+    leaves = lambda n_len: 1 if n_len <= NTTEngine.RADIX else 1 + leaves(n_len // NTTEngine.RADIX)
+    if n < NTTEngine.FOURSTEP_MIN:
+        return 0
+    n1, n2 = NTTEngine.split(n)
+    return 7 * (leaves(n1) + leaves(n2))
+
+
+def k1_per_prove(fast, dpk):
+    """K1's MSM-form launches that one prove's plans predict when no flag
+    fires, and the plans' layouts: each of the five MSMs launches an apply
+    per window group, the merge-scan steps of each group and two reduce
+    launches.  The witness plan serves At and B1 in G1 and B2 in G2."""
+    lays = {name: fast.msm_g1.layout(lanes) for name, lanes in
+            (("at", dpk.m_pad), ("b1", dpk.m_pad), ("b2", dpk.m_pad), ("cdelta", dpk.mp_pad), ("h", dpk.n_pad))}
+    out = {"K1": 0, "K1 apply": 0, "K1 seg-scan": 0, "K1 reduce": 0}
+    for lay in lays.values():
+        groups = lay["groups"] if lay["mode"] == "tiled" else 1
+        out["K1 apply"] += groups if lay["mode"] == "tiled" else 0
+        out["K1 seg-scan"] += groups * lay["seg_steps"]
+        out["K1 reduce"] += 2
+    return out, lays
+
+
+def group_layout(lay: dict) -> str:
+    if lay["mode"] == "small":
+        return f"small path, c {lay['c']}"
+    return (f"c {lay['c']}, {lay['w']} windows in {lay['groups']} group(s) of {lay['wg']} ({lay['wpad']} zero), "
+            f"K {lay['k']} x m {lay['m']}, p_cap {lay['p_cap']}, {lay['seg_steps']} merge-scan steps")
+
+
+def ladder_msm(torch, fast, log_n: int, rng, runs: int, card: str) -> dict:
+    """bench.py's G1 MSM through the port: 2^log_n distinct points k_i·G
+    (random k_i) made on the card by the fixed-base engine and normalised
+    by to_affine_tiled, random scalars, then window_sums_checked and the
+    host combination, timed end to end as bench.py times it; the result
+    must equal (Σ s_i·k_i)·G."""
+    from go_snark_study_tpu_torch.bn128 import constants as C
+    from go_snark_study_tpu_torch.ops.msm import combine_window_sums, scalars_to_limbs, scalars_to_windows
+
+    bn, n = fast.ctx.bn, 1 << log_n
+    t0 = time.perf_counter()
+    scalars = [rng.randrange(C.R) for _ in range(n)]
+    ks = [rng.randrange(1, C.R) for _ in range(n)]
+    t_rand = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    aff = fast.g1b.to_affine_tiled(fast.fb_g1.batch_mul_device(scalars_to_windows(ks, C.R, fast.device)))
+    limbs = scalars_to_limbs(scalars, C.R, fast.device)
+    torch.cuda.synchronize()
+    t_points, peak_points = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    eng = fast.msm_g1
+    c = eng.window_bits_for(n)
+    lay = eng.layout(n, c)
+    hits0 = eng.fallback_hits
+    secs = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        sums = eng.window_sums_checked(aff, limbs, c)
+        total = combine_window_sums(bn.g1, fast.g1b.unpack(sums), c)
+        secs.append(time.perf_counter() - t0)
+    expect = sum(s * k for s, k in zip(scalars, ks)) % C.R
+    assert bn.g1.equal(total, bn.g1.mul_scalar(bn.g1.g, expect)), f"[ladder] G1 MSM 2^{log_n} != (sum s_i k_i) G"
+    hits = eng.fallback_hits - hits0
+    ms = secs[min(1, runs - 1)] * 1e3  # bench.py times the second run
+    print(f"[ladder] G1 MSM 2^{log_n}: {ms:.1f} ms ({n / ms * 1e3:.0f} points/s; runs {secs} s), "
+          f"equals the host oracle; {group_layout(lay)}; degeneracy re-runs {hits}; random scalars and "
+          f"multipliers {t_rand:.2f} s, points k_i G on the card (fixed-base, to_affine_tiled) and scalar limbs "
+          f"{t_points:.2f} s, peak device memory of that step {peak_points / 2**20:.1f} MiB  ({card})")
+    return dict(n=n, c=c, layout=lay, ms=ms, runs_s=secs, points_per_sec=n / ms * 1e3,
+                fallback_hits=hits, random_s=t_rand, points_s=t_points, points_peak_bytes=peak_points)
+
+
+def ladder_ntt(torch, fast, log_n: int, card: str) -> dict:
+    """bench.py's NTT (two forward transforms, the second timed), then
+    inverse(forward(x)) == x bit for bit, a fresh engine's first forward
+    (its tables built) and NTT_SAMPLES evaluations against a host Horner
+    evaluation of the coefficients at w^i."""
+    from go_snark_study_tpu_torch.bn128 import constants as C
+    from go_snark_study_tpu_torch.ops.ntt import NTTEngine
+
+    n, ntt, K = 1 << log_n, fast.ntt, fast.Kr
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    x = rand_fq(torch, gen, n, C.R >> 224)
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        y = ntt.forward(x)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    assert torch.equal(ntt.inverse(y), x), f"[ladder] NTT 2^{log_n}: inverse(forward(x)) != x"
+    fresh = NTTEngine(K)  # its first forward builds the step and twiddle tables on the host
+    t0 = time.perf_counter()
+    assert torch.equal(fresh.forward(x), y)
+    torch.cuda.synchronize()
+    t_fresh = time.perf_counter() - t0
+    idx = sorted(random.Random(2).sample(range(n), NTT_SAMPLES))
+    coeffs, got = K.unpack(x), K.unpack(y[:, idx].contiguous())
+    w = ntt.root_of_unity(n)
+    for i, g in zip(idx, got):
+        wi, acc = pow(w, i, C.R), 0
+        for c_ in reversed(coeffs):
+            acc = (acc * wi + c_) % C.R
+        assert acc == g, f"[ladder] NTT 2^{log_n}: evaluation {i} != the host's"
+    print(f"[ladder] NTT 2^{log_n} forward: {secs[-1] * 1e3:.2f} ms (first {secs[0] * 1e3:.2f} ms); inverse(forward) "
+          f"bit for bit; a fresh engine's first forward, its tables built, {t_fresh:.3f} s; evaluations {idx} "
+          f"equal the host's Horner values  ({card})")
+    return dict(ms=secs[-1] * 1e3, first_ms=secs[0] * 1e3, fresh_engine_first_s=t_fresh, samples=idx)
+
+
+def ladder_modmul(torch, card: str) -> dict:
+    """bench.py's Montgomery-product throughput: a chain of MODMUL_CHAIN
+    products at 2^20 lanes over fr_kernels(), repeated MODMUL_REPS times."""
+    from go_snark_study_tpu_torch.bn128 import constants as C
+    from go_snark_study_tpu_torch.ops.fields import fr_kernels
+
+    Kr = fr_kernels()  # device=None: the card
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    a = rand_fq(torch, gen, MODMUL_LANES, C.R >> 224)
+
+    def chain(x, y):
+        for _ in range(MODMUL_CHAIN):
+            x = Kr.mul(x, y)
+        return x
+
+    r = chain(a, a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MODMUL_REPS):
+        r = chain(r, a)
+    torch.cuda.synchronize()
+    per_s = MODMUL_CHAIN * MODMUL_REPS * MODMUL_LANES / (time.perf_counter() - t0)
+    print(f"[ladder] Montgomery products at 2^{MODMUL_LANES.bit_length() - 1} lanes, chains of {MODMUL_CHAIN} x {MODMUL_REPS}: "
+          f"{per_s / 1e6:.1f} M/s  ({card})")
+    return dict(modmul_mps=per_s / 1e6)
+
+
+def ladder_tier(torch, fast, log_n: int, card: str) -> dict:
+    """One rung of bench.py's ladder (bench.py:513-576) on the phase's one
+    engine: mul_chain_r1cs(2^log_n, seed=1), setup without host lists (its
+    setup.* spans printed), a cold and a warm prove, verification and a
+    wrong public input; the warm prove's launches against the plans'
+    prediction, peak device memory and the key's device bytes.  At the top
+    tier, one prove more under torch.profiler and one with the prove.*
+    spans (GOSNARK_MSM_PROFILE=1)."""
+    from go_snark_study_tpu_torch.models.groth16 import verify_proof
+    from go_snark_study_tpu_torch.profiling import launch_counts
+    from go_snark_study_tpu_torch.synthetic import mul_chain_r1cs
+
+    tag = f"ladder 2^{log_n}"
+    t0 = time.perf_counter()
+    r1cs = mul_chain_r1cs(1 << log_n, seed=1)
+    t_r1cs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    box = {}
+
+    def do_setup():
+        t0 = time.perf_counter()
+        box["setup"] = fast.setup(r1cs, rng=random.Random(1), materialize_host=False)
+        torch.cuda.synchronize()
+        box["s"] = time.perf_counter() - t0
+
+    _, spans = profiled(do_setup)
+    setup, t_setup = box["setup"], box["s"]
+    pk = setup.pk
+    dpk = pk._device
+    pk_bytes = sum(t.numel() * t.element_size() for t in device_pk_leaves(dpk).values())
+    hits0 = fast.msm_g1.fallback_hits + fast.msm_g2.fallback_hits
+    t0 = time.perf_counter()
+    fast.prove(r1cs, pk, rng=random.Random(2))
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    hits1 = fast.msm_g1.fallback_hits + fast.msm_g2.fallback_hits
+    before = launch_counts()
+    t0 = time.perf_counter()
+    proof = fast.prove(r1cs, pk, rng=random.Random(3))
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    after = launch_counts()
+    hits = fast.msm_g1.fallback_hits + fast.msm_g2.fallback_hits
+    peak = torch.cuda.max_memory_allocated()
+    per = {k: after[k] - before[k] for k in after}
+    publics = r1cs.witness[1 : r1cs.n_public + 1]
+    t0 = time.perf_counter()
+    ok = verify_proof(setup.vk, proof, publics)
+    t_verify = time.perf_counter() - t0
+    assert ok, f"[{tag}] the proof does not verify"
+    assert not verify_proof(setup.vk, proof, [publics[0] + 1]), f"[{tag}] a wrong public input verifies"
+    k1_pred, lays = k1_per_prove(fast, dpk)
+    k1 = {k: per[k] for k in K1_FORMS}
+    k3_pred = k3_per_prove(dpk.n)
+    assert per["K3"] == k3_pred, f"[{tag}] K3 launched {per['K3']} times in a prove, predicted {k3_pred}"
+    if log_n == LADDER_TIERS[-1]:  # 2^20
+        assert hits == hits1, f"[{tag}] a degeneracy flag fired in the warm prove"
+        assert k1 == k1_pred, f"[{tag}] K1 launches per prove {k1}, the plans predict {k1_pred}"
+    prof = host = None
+    if log_n == LADDER_TIERS[-1]:  # where the time of a 2^20 prove goes: device (profiler), host phases (spans)
+        prof = profile_prove(torch, fast, r1cs, pk, random.Random(4), tag, card)
+        report, host = profiled(lambda: fast.prove(r1cs, pk, rng=random.Random(5)))
+        for ln in report.splitlines():
+            print(f"[{tag}]   {ln}")
+    setup_rows = {k: round(v["s"], 3) for k, v in spans.items() if k.startswith("setup.")}
+    print(f"[{tag}] {r1cs.n_constraints} constraints (mul_chain_r1cs {t_r1cs:.2f} s): setup {t_setup:.3f} s "
+          f"({json.dumps(setup_rows)}), prove cold {t_cold:.3f} s, warm {t_warm:.3f} s, verify {t_verify:.3f} s; "
+          f"verifies, a wrong public fails; proving key {pk_bytes / 1e6:.1f} MB on the card, peak device memory "
+          f"{peak / 2**20:.1f} MiB; degeneracy re-runs {hits - hits0} (warm prove {hits - hits1})  ({card})")
+    print(f"[{tag}] launches in the warm prove: K1 by form {json.dumps(k1)} (total {sum(k1.values())}; the plans "
+          f"predict {json.dumps(k1_pred)}, total {sum(k1_pred.values())}), K2 {per['K2']}, K3 {per['K3']} "
+          f"(predicted {k3_pred}), K4 {per['K4']}  ({card})")
+    for name, lay in lays.items():
+        print(f"[{tag}]   MSM {name}: {lay['n']} lanes, {group_layout(lay)}")
+    return dict(constraints=r1cs.n_constraints, r1cs_s=t_r1cs, setup_s=t_setup, setup_spans_s=setup_rows,
+                prove_cold_s=t_cold, prove_s=t_warm, verify_s=t_verify, pk_bytes=pk_bytes, peak_bytes=peak,
+                profile=prof, prove_phases=host,
+                fallbacks=hits - hits0, prove_counts=per, k1_predicted=k1_pred, k3_predicted=k3_pred,
+                layouts={k: {f: v for f, v in lay.items()} for k, lay in lays.items()}, r1cs=r1cs, setup=setup)
+
+
+def held_row(torch, held: list, kernel: str, shape: str, got, want, arity: int = 0, flags: bool = False):
+    """Compare a kernel's result with its plain version's (with their flags
+    when ``flags``), record it in ``held`` and raise on a difference;
+    returns the plain result (without its flag)."""
+    from go_snark_study_tpu_torch.ops import point_add as pa
+
+    if flags:
+        (got, gbad), (want, wbad) = got, want
+        flags_equal = bool(gbad) == bool(wbad)
+    else:
+        flags_equal = True
+    gl = pa._leaves(got, arity) if arity else [got]
+    wl = pa._leaves(want, arity) if arity else [want]
+    equal = all(torch.equal(g, w) for g, w in zip(gl, wl))
+    held.append(dict(kernel=kernel, shape=shape, equal=equal, flags_equal=flags_equal,
+                     max_abs_err=max_abs_err(torch, gl, wl)))
+    assert equal and flags_equal, f"[ladder] {kernel} ({shape}): kernel != plain {held[-1]}"
+    return want
+
+
+def time_site(torch, clock_hz, kernel: str, site: str, shape: str, fn, names, reps: int, nbytes: float,
+              ops: float, per_call: int, **extra) -> dict:
+    """One timing row of the ladder path: ``fn``'s device ms per launch from
+    torch.profiler (from CUDA events around a loop of calls, marked so, where
+    three profiling sessions record none of its launches), its wrapper ms and
+    its bound; ``plain_ms`` is filled in by the caller."""
+    wrapper = cuda_ms(torch, fn, reps, warm=1)
+    try:
+        dev, launches = device_ms(torch, fn, reps, names, warm=0)
+        timing = "profiler"
+    except RuntimeError:
+        dev, launches, timing = wrapper / per_call, per_call, "cuda events"
+    bnd, by = bound_ms(nbytes / per_call, ops / per_call, clock_hz)
+    return dict(kernel=kernel, site=site, shape=shape, ms=dev, device_ms=dev, timing=timing,
+                launches_per_call=launches, wrapper_ms=wrapper, plain_ms=None, bound_ms=bnd, bound_by=by,
+                max_abs_err=0, **extra)
+
+
+def plain_call(torch, fn):
+    """(result, ms) of one call of a plain version on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def ladder_vs_plain(torch, clock_hz, fast, tier: dict, card: str):
+    """Every kernel of the ladder path on the 2^20 prove's own shapes and
+    inputs (after the counts are read): K1's apply, merge-scan and reduce
+    forms on the last, zero-padded window group of the witness plan, in G1
+    (At) and in G2 (B2 on that same G1 plan), the reduce on the buckets of
+    every group, as the prove reduces them; K1's per-lane jadd on the
+    fixed-base commit's second window step; K2 on the H pipeline's first
+    coset product and K3 on its first three leaves.  Each is timed on the
+    card beside its bound first; then each is held against its plain
+    version, bit for bit with equal flags (the complete forms too where a
+    flag fired).  Beside them, to_affine and to_affine_tiled in turns on the
+    setup commit's width.  Returns (held, sites, the affine timings)."""
+    import go_snark_study_tpu_torch.ops.ntt as ntt_mod
+    from go_snark_study_tpu_torch.bn128 import constants as C
+    from go_snark_study_tpu_torch.ops import mont_mul as mm
+    from go_snark_study_tpu_torch.ops import msm_kernels as mk
+    from go_snark_study_tpu_torch.ops import ntt_kernels as nk
+    from go_snark_study_tpu_torch.ops import point_add as pa
+    from go_snark_study_tpu_torch.ops.curve_ops import tree_leaves, tree_map
+    from go_snark_study_tpu_torch.ops.fixed_base import DIGITS
+    from go_snark_study_tpu_torch.ops.msm import (WINDOW_BITS, MSMEngine, bucket_count, digits_from_limbs,
+                                                   scalars_to_limbs)
+    from go_snark_study_tpu_torch.profiling import kernel_cost
+
+    r1cs, dpk = tier["r1cs"], tier["setup"].pk._device
+    held, sites, plain_ms = [], [], {}
+    w = [x % C.R for x in r1cs.witness]
+    w_limbs = scalars_to_limbs(w + [0] * (dpk.m_pad - len(w)), C.R, fast.device)
+    eng = fast.msm_g1
+    c = eng.window_bits_for(dpk.m_pad)
+    lay = eng.layout(dpk.m_pad, c)
+    plans = eng.make_plans(w_limbs, c)
+    assert (plans["wg"], plans["wpad"], len(plans["plans"])) == (lay["wg"], lay["wpad"], lay["groups"]), lay
+    last = plans["plans"][-1]
+    sdig = last["comp_dig"]
+    m_buckets, d_chunk = bucket_count(c)
+    groups = ((1, dpk.at), (2, dpk.b2))
+
+    def buckets(pts, arity, complete, scanned_last):
+        """Every group's buckets as the prove reduces them: the groups before
+        the last through the kernels, then the last group's from ``scanned_last``."""
+        parts = []
+        for plan in plans["plans"][:-1]:
+            part, _ = mk.seg_scan(mk.apply(pts, plan, arity, complete)[0], plan["comp_dig"], arity, complete)
+            parts.append(MSMEngine._runs_to_buckets(part, plan["comp_dig"], m_buckets))
+        parts.append(MSMEngine._runs_to_buckets(scanned_last, sdig, m_buckets))
+        return tree_map(lambda *xs: torch.cat(xs, dim=1), *parts)
+
+    # the inputs of K1's per-lane jadd, K2 and K3 on this prove's path
+    windows = digits_from_limbs(w_limbs, WINDOW_BITS)
+    steps = {}
+    for arity, fb, bg in ((1, fast.fb_g1, fast.g1b), (2, fast.fb_g2, fast.g2b)):
+        acc = bg.zeros(dpk.m_pad)
+        for w_ in range(2):
+            idx = windows[w_].long() + w_ * DIGITS
+            pt = tree_map(lambda t: t.index_select(1, idx), fb._table)
+            steps[arity] = (acc, pt)
+            acc = bg.jadd(acc, pt)
+    # to_affine against to_affine_tiled on the setup commit's width, in turns
+    affine = {}
+    for arity, fb, bg in ((1, fast.fb_g1, fast.g1b), (2, fast.fb_g2, fast.g2b)):
+        jac = fb.batch_mul_device(windows)
+        out, secs, peak = {}, {"to_affine": [], "to_affine_tiled": []}, {}
+        for name in ("to_affine", "to_affine_tiled", "to_affine_tiled", "to_affine"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out[name] = getattr(bg, name)(jac)
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+            peak[name] = torch.cuda.max_memory_allocated() - base
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(out["to_affine"]), tree_leaves(out["to_affine_tiled"])))
+        affine[f"G{arity}"] = dict(lanes=dpk.m_pad, s=secs, peak_bytes=peak)
+        print(f"[ladder] G{arity} to_affine and to_affine_tiled at {dpk.m_pad} lanes, in turns: {json.dumps(secs)} s; "
+              f"peak bytes above the input {json.dumps(peak)}; bit for bit equal  ({card})")
+        del jac, out
+    a_e, b_e, c_e = r1cs.row_evals()
+    n = dpk.n
+    pack = lambda v: fast.Kr.pack(list(v) + [0] * (n - len(v)))
+    leaves, coset = [], []
+    small_ntt, coset_shift = ntt_mod.small_ntt, fast.ntt.coset_shift
+
+    def rec_small(x, tw):
+        if len(leaves) < 3:
+            leaves.append((x.clone(), tw))
+        return small_ntt(x, tw)
+
+    def rec_shift(x, g=5, inverse=False, powers=None):
+        if not coset:
+            coset.append((x.clone(), powers))
+        return coset_shift(x, g, inverse, powers)
+
+    ntt_mod.small_ntt, fast.ntt.coset_shift = rec_small, rec_shift
+    try:
+        fast._get_h_jit(n, dpk.n_pad)(pack(a_e), pack(b_e), pack(c_e), *fast._ntt_args(n))
+    finally:
+        ntt_mod.small_ntt = small_ntt
+        del fast.ntt.coset_shift
+    log_n = n.bit_length() - 1
+
+    # 1. times, the kernels alone (no plain version has run yet)
+    for arity, pts in groups:
+        comp, _ = mk.apply(pts, last, arity, False)
+        scanned, _ = mk.seg_scan(comp, sdig, arity, False)
+        bk = buckets(pts, arity, False, scanned)
+        calls = {"apply": lambda: mk.apply(pts, last, arity, False),
+                 "seg-scan": lambda: mk.seg_scan(comp, sdig, arity, False),
+                 "reduce-1": lambda: mk.reduce(bk, d_chunk, arity, False)}
+        calls["reduce-2"] = calls["reduce-1"]
+        for site, kern, names, nbytes, ops, shape, per_call in msm_form_costs(torch, last, dpk.m_pad, arity, bk,
+                                                                              d_chunk):
+            sites.append(time_site(torch, clock_hz, kern.name, site, shape, calls[site], names,
+                                   3 if site in ("apply", "seg-scan") else 5, nbytes, ops, per_call,
+                                   group=f"G{arity}", c=c))
+        acc, pt = steps[arity]
+        cost = kernel_cost("point_add", dpk.m_pad, group=arity)
+        sites.append(time_site(torch, clock_hz, "K1 point_add", "per-lane jadd",
+                               f"{dpk.m_pad} lanes, fixed-base window step 1", lambda: pa.point_add("jadd", arity, acc, pt),
+                               ("point_add_kernel",), 10, cost["bytes"], cost["int32_ops"], 1, group=f"G{arity}"))
+    x, powers = coset[0]
+    cost = kernel_cost("mont_mul", n)
+    sites.append(time_site(torch, clock_hz, "K2 mont_mul", "coset product", f"(8, {n}) Fr",
+                           lambda: mm.mont_mul(x, powers, C.R), ("mont_mul_kernel",), 50, cost["bytes"],
+                           cost["int32_ops"], 1))
+    for k, (x, tw) in enumerate(leaves):
+        g, L = x.shape[1], x.shape[2]
+        cost = kernel_cost("small_ntt", L, g=g)
+        sites.append(time_site(torch, clock_hz, "K3 small_ntt", f"2^{log_n} leaf {k + 1}", f"(8, {g}, {L})",
+                               lambda: nk.small_ntt(x, tw), ("small_ntt_kernel",), 50, cost["bytes"],
+                               cost["int32_ops"], 1, launch=nk.small_ntt_shape(g, L)))
+
+    # 2. each kernel against its plain version
+    t0 = time.perf_counter()
+    for complete in (False, True) if tier["fallbacks"] else (False,):
+        mode = "complete" if complete else "incomplete"
+        for arity, pts in groups:
+            tag = f"G{arity} {mode}, last group of {lay['wg']} windows ({lay['wpad']} zero)"
+            want, ms = plain_call(torch, lambda: mk.apply_plain(pts, last, arity, complete))
+            plain_ms[("apply", arity, complete)] = ms
+            comp = held_row(torch, held, "K1 apply", tag, mk.apply(pts, last, arity, complete), want, arity, True)
+            want, ms = plain_call(torch, lambda: mk.seg_scan_plain(comp, sdig, arity, complete))
+            plain_ms[("seg-scan", arity, complete)] = ms
+            scanned = held_row(torch, held, "K1 seg-scan", tag, mk.seg_scan(comp, sdig, arity, complete), want,
+                               arity, True)
+            bk = buckets(pts, arity, complete, scanned)
+            want, ms = plain_call(torch, lambda: mk.reduce_plain(bk, d_chunk, arity, complete))
+            plain_ms[("reduce-1", arity, complete)] = ms
+            held_row(torch, held, "K1 reduce", f"G{arity} {mode}, {lay['w'] + lay['wpad']} windows x {m_buckets} "
+                     f"buckets", mk.reduce(bk, d_chunk, arity, complete), want, arity, True)
+    t_forms = time.perf_counter() - t0
+    for arity, _ in groups:
+        acc, pt = steps[arity]
+        want, plain_ms[("per-lane jadd", arity)] = plain_call(torch, lambda: pa.point_add_plain("jadd", arity, acc, pt))
+        held_row(torch, held, "K1 jadd", f"G{arity} {dpk.m_pad} lanes, fixed-base window step 1",
+                 pa.point_add("jadd", arity, acc, pt), want, arity)
+    x, powers = coset[0]
+    want, plain_ms[("coset product",)] = plain_call(torch, lambda: mm.mont_mul_plain(x, powers, C.R))
+    held_row(torch, held, "K2", f"(8, {n}) Fr, the H pipeline's first coset product", mm.mont_mul(x, powers, C.R),
+             want)
+    for k, (x, tw) in enumerate(leaves):
+        want, plain_ms[(f"2^{log_n} leaf {k + 1}",)] = plain_call(torch, lambda: nk.small_ntt_plain(x, tw))
+        held_row(torch, held, "K3", f"(8, {x.shape[1]}, {x.shape[2]}), leaf {k + 1} of the first 2^{log_n} transform",
+                 nk.small_ntt(x, tw), want)
+    for row in sites:
+        arity = int(row["group"][1]) if "group" in row else None
+        key = (row["site"], arity, False) if row["site"] in ("apply", "seg-scan", "reduce-1") else \
+            (row["site"], arity) if arity else (row["site"],)
+        row["plain_ms"] = plain_ms.get(key)
+        plain = f", plain {row['plain_ms']:.1f} ms" if row["plain_ms"] is not None else ""
+        print(f"[ladder] {row['kernel']} {row['site']} {row.get('group', '')} ({row['shape']}): device "
+              f"{row['ms']:.5f} ms/launch ({row['timing']}, x{row['launches_per_call']:g} per call), wrapper "
+              f"{row['wrapper_ms']:.4f} ms{plain}, bound {row['bound_ms']:.6f} ms ({row['bound_by']})  ({card})")
+    print(f"[ladder] held against the plain versions, bit for bit with equal flags, on the 2^{log_n} prove's "
+          f"inputs: " + "; ".join(f"{h['kernel']} {h['shape']}" for h in held)
+          + f" (K1 forms {t_forms:.1f} s)  ({card})")
+    return held, sites, affine
+
+
+def run_ladder(torch, clock_hz, card: str) -> dict:
+    """The ladder phase (see the module docstring).  The counts are set to 0
+    before the warmup and read after the 2^21 MSM; the plain comparisons
+    come after."""
+    from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
+    from go_snark_study_tpu_torch.profiling import launch_counts, reset_counts
+
+    secs = {}
+
+    def step(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        return out
+
+    reset_counts()
+    fast = FastGroth16()  # device=None: the card; one engine for the phase, as bench.py:319-322
+    warm = step("warmup", lambda: fast.warmup(families=("big",), domains=tuple(1 << k for k in LADDER_TIERS),
+                                              g2=True, fixed_base=True))
+    print(f"[ladder] warmup {secs['warmup']:.2f} s: {json.dumps({k: round(v, 3) for k, v in warm.items()})}  ({card})")
+    rng = random.Random(LADDER_SEED)
+    msm = {LADDER_MSM_LOGS[0]: step(f"msm 2^{LADDER_MSM_LOGS[0]}",
+                                    lambda: ladder_msm(torch, fast, LADDER_MSM_LOGS[0], rng, 3, card))}
+    ntt = step(f"ntt 2^{LADDER_NTT_LOG}", lambda: ladder_ntt(torch, fast, LADDER_NTT_LOG, card))
+    modmul = step("modmul", lambda: ladder_modmul(torch, card))
+    tiers = {}
+    for log_n in LADDER_TIERS:
+        tiers[log_n] = step(f"tier 2^{log_n}", lambda: ladder_tier(torch, fast, log_n, card))
+        if log_n != LADDER_TIERS[-1]:  # keep the last tier's key for the plain comparisons
+            del tiers[log_n]["setup"], tiers[log_n]["r1cs"]
+    msm[LADDER_MSM_LOGS[1]] = step(f"msm 2^{LADDER_MSM_LOGS[1]}",
+                                   lambda: ladder_msm(torch, fast, LADDER_MSM_LOGS[1], rng, 1, card))
+    counts = launch_counts()
+    for k in K1_FORMS + ("K2", "K3"):
+        assert counts[k] > 0, f"{k} not launched on the ladder path"
+    top = tiers[LADDER_TIERS[-1]]
+    held, sites, affine = step("held against plain", lambda: ladder_vs_plain(torch, clock_hz, fast, top, card))
+    del top["setup"], top["r1cs"]
+    m20, m21 = msm[LADDER_MSM_LOGS[0]], msm[LADDER_MSM_LOGS[1]]
+    line = {"card": card, f"msm_g1_points_per_sec_2^{LADDER_MSM_LOGS[0]}": m20["points_per_sec"],
+            f"msm_2^{LADDER_MSM_LOGS[0]}_ms": m20["ms"], f"ntt_2^{LADDER_NTT_LOG}_ms": ntt["ms"],
+            "modmul_mps": modmul["modmul_mps"]}
+    for log_n, t in tiers.items():
+        line[f"groth16_setup_2^{log_n}_s"] = t["setup_s"]
+        line[f"groth16_prove_2^{log_n}_s"] = t["prove_s"]
+        line[f"groth16_prove_cold_2^{log_n}_s"] = t["prove_cold_s"]
+        line[f"pk_hbm_2^{log_n}_mb"] = t["pk_bytes"] / 1e6
+    line.update({f"msm_2^{LADDER_MSM_LOGS[1]}_ms": m21["ms"],
+                 f"msm_2^{LADDER_MSM_LOGS[1]}_pts_per_sec": m21["points_per_sec"],
+                 "msm_fallback_hits": m20["fallback_hits"] + m21["fallback_hits"],
+                 "prove_fallback_hits": sum(t["fallbacks"] for t in tiers.values()),
+                 "warmup_steps_s": warm, "step_s": secs, "msm": msm, "ntt": ntt, "tiers": tiers,
+                 "launches": counts, "held_against_plain": held, "sites": sites, "affine": affine})
+    print(f"[ladder] seconds by step: {json.dumps({k: round(v, 1) for k, v in secs.items()})}  ({card})")
+    print(json.dumps({"ladder": line}))
+    return dict(counts=counts, sites=sites)
+
+
 def run_sharded(torch, card: str, paths: dict):
     """The sharded phase (see the module docstring).  Every rank's failure
     raises here, through run_ranks."""
@@ -1350,6 +1912,9 @@ def main(argv=None) -> int:
         paths["cli"] = run_cli(torch, card, paths)
     if "sharded" in phases:
         paths["sharded"] = run_sharded(torch, card, paths)
+    if "ladder" in phases:
+        paths["ladder"] = run_ladder(torch, clock_hz, card)
+        rows["ladder_sites"] = paths["ladder"]["sites"]
 
     kernels = []
     objs = kernel_objects()
@@ -1376,7 +1941,7 @@ def main(argv=None) -> int:
             "shape": row.get("shape"),
             "path": f"2^{MAIN_LOG if path == 'main' else SMALL_LOG} proof",
         })
-    for key in ("K1_instances", "K1_sites", "K3_sites", "K4_sites", "K4_by_n", "small_vs_stage_path"):
+    for key in ("K1_instances", "K1_sites", "K3_sites", "K4_sites", "K4_by_n", "small_vs_stage_path", "ladder_sites"):
         if key in rows:
             print(json.dumps({key.lower(): rows[key]}))
     print(f"[card] {card}")

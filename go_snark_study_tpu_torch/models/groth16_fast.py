@@ -22,7 +22,8 @@ prove (the JAX package's compile families have no counterpart here).
 prover's three-thread pool existed for concurrent XLA compiles; the port
 enqueues the G1, G2 and H sides in that order on one stream.  With
 ``GOSNARK_MSM_PROFILE=1`` the prover's phases are timed into
-``profiling.PROFILER`` (``prove.*``).
+``profiling.PROFILER`` (``prove.*``), and so are the setup's host loops and
+its device commits (``setup.*``).
 """
 
 from __future__ import annotations
@@ -36,9 +37,9 @@ import torch
 from .. import _build
 from ..bn128 import constants as C
 from ..ops.curve_ops import G1Batch, G2Batch, tree_map
-from ..ops.fixed_base import FixedBaseEngine, scalar_windows
+from ..ops.fixed_base import FixedBaseEngine
 from ..ops.limbs import FieldKernels, resolve_device
-from ..ops.msm import MSMEngine, combine_window_sums, scalars_to_limbs
+from ..ops.msm import MSMEngine, combine_window_sums, scalars_to_limbs, scalars_to_windows
 from ..ops.ntt import NTTEngine
 from ..profiling import span
 from ..synthetic import SparseR1CS
@@ -201,7 +202,7 @@ class FastGroth16:
 
         def commit(fb, bg, scalars, lanes):
             scs = list(scalars) + [0] * (lanes - len(scalars))
-            jac = fb.batch_mul_device(scalar_windows(scs, C.R, self.device))
+            jac = fb.batch_mul_device(scalars_to_windows(scs, C.R, self.device))
             return bg.to_affine(jac)
 
         return DevicePk(
@@ -240,7 +241,8 @@ class FastGroth16:
         setup = Setup(toxic=tox)
         pk, vk = setup.pk, setup.vk
 
-        L = self._lagrange_at_tau(n, tox.t)
+        with span("setup.lagrange"):
+            L = self._lagrange_at_tau(n, tox.t)
 
         def col_evals(rows):
             out = [0] * m
@@ -250,9 +252,10 @@ class FastGroth16:
                     out[i] = (out[i] + coeff * lj) % r
             return out
 
-        ats = col_evals(r1cs.A)
-        bts = col_evals(r1cs.B)
-        cts = col_evals(r1cs.C)
+        with span("setup.col_evals"):
+            ats = col_evals(r1cs.A)
+            bts = col_evals(r1cs.B)
+            cts = col_evals(r1cs.C)
 
         # Z(x) = x^n - 1
         pk.z = [r - 1] + [0] * (n - 1) + [1]
@@ -264,20 +267,23 @@ class FastGroth16:
         # groth16.go:139-149), length n+1 = len(z); H has degree <= n-2 so
         # the device key keeps the first n entries
         ztd = zt * inv_delta % r
-        ladder = [ztd]
-        acc = tox.t
-        for _ in range(1, len(pk.z)):
-            ladder.append(acc * ztd % r)
-            acc = acc * tox.t % r
+        with span("setup.ladder"):
+            ladder = [ztd]
+            acc = tox.t
+            for _ in range(1, len(pk.z)):
+                ladder.append(acc * ztd % r)
+                acc = acc * tox.t % r
 
         lo = r1cs.n_public + 1
-        bac = [
-            (ats[i] * tox.kbeta + bts[i] * tox.kalpha + cts[i]) % r
-            for i in range(m)
-        ]
-        cdelta_priv = [x * inv_delta % r for x in bac[lo:]]
+        with span("setup.bac"):
+            bac = [
+                (ats[i] * tox.kbeta + bts[i] * tox.kalpha + cts[i]) % r
+                for i in range(m)
+            ]
+            cdelta_priv = [x * inv_delta % r for x in bac[lo:]]
 
-        pk._device = self._device_pk_from_scalars(n, m, lo, ats, bts, cdelta_priv, ladder)
+        with span("setup.commit", self.device):
+            pk._device = self._device_pk_from_scalars(n, m, lo, ats, bts, cdelta_priv, ladder)
 
         g1, g2 = ctx.bn.g1, ctx.bn.g2
         pk.g1.alpha = g1.mul_scalar(g1.g, tox.kalpha)
@@ -355,11 +361,11 @@ class FastGroth16:
 
         def pipeline(a, b, c, t_fwd, t_inv, cs, cs_inv):
             intt = lambda x: K.mul_const(ntt.transform(x, t_inv, True), ninv_l)
-            to_coset = lambda x: ntt.transform(K.mul(intt(x), cs), t_fwd, False)
+            to_coset = lambda x: ntt.transform(ntt.coset_shift(intt(x), powers=cs), t_fwd, False)
             ac, bc, cc = to_coset(a), to_coset(b), to_coset(c)
             p = K.sub(K.mul(ac, bc), cc)
             hc = K.mul_const(p, zinv_l)
-            return K.mul(intt(hc), cs_inv)
+            return ntt.coset_shift(intt(hc), powers=cs_inv)
 
         return pipeline
 

@@ -28,6 +28,7 @@ from . import point_add as _pa
 from .limbs import FieldKernels
 
 __all__ = [
+    "AFFINE_TILE",
     "BatchFq",
     "BatchFq2",
     "jacobian_add",
@@ -39,6 +40,11 @@ __all__ = [
     "G2Batch",
     "tree_map",
 ]
+
+
+# to_affine_tiled's default tile: one inversion tree holds at most 2^20
+# lanes (~64 MB of Fq elements in its levels)
+AFFINE_TILE = 1 << 20
 
 
 def tree_map(fn, *trees):
@@ -348,9 +354,8 @@ class _BatchGroup:
         """Jacobian -> affine (x/z^2, y/z^3, 1) batched; identities map to
         (0, 0, 0).  ~7 products per point via the tree batch inversion —
         run once per proving key so every MSM accumulation add is the cheap
-        mixed add.  The JAX package's ``to_affine_tiled`` cuts the lanes
-        into fixed tiles to bound its compile count; lanes are independent,
-        so one call over all of them gives the same values."""
+        mixed add.  One inversion tree over all lanes (padded to a power of
+        two); :meth:`to_affine_tiled` bounds the tree's width."""
         F = self.F
         x, y, z = p
         is_id = F.is_zero(z)
@@ -367,6 +372,20 @@ class _BatchGroup:
             F.select(nz, ay, zero),
             F.select(nz, one, zero),
         )
+
+    def to_affine_tiled(self, p, tile: int | None = None):
+        """:meth:`to_affine` in slices of ``tile`` lanes (default
+        ``AFFINE_TILE``), one inversion tree each, so that the tree's memory
+        is bounded whatever the lane count.  Lanes are independent, so the
+        values are :meth:`to_affine`'s bit for bit, identity lanes included.
+        The JAX package pads the last tile to a fixed compiled width; the
+        port leaves it ragged."""
+        tile = tile or AFFINE_TILE
+        n = tree_leaves(p)[0].shape[-1]
+        if n <= tile:
+            return self.to_affine(p)
+        parts = [self.to_affine(tree_map(lambda c: c[:, i : i + tile].contiguous(), p)) for i in range(0, n, tile)]
+        return tree_map(lambda *xs: torch.cat(xs, dim=1), *parts)
 
     def one_coord(self, like):
         """Field one broadcast to the lane count of ``like``."""

@@ -20,17 +20,11 @@ from typing import List, Sequence
 import torch
 
 from .curve_ops import tree_map
-from .msm import NUM_WINDOWS, WINDOW_BITS, digits_from_limbs, scalars_to_limbs
+from .msm import NUM_WINDOWS, WINDOW_BITS, scalars_to_windows
 
-__all__ = ["FixedBaseEngine", "scalar_windows"]
+__all__ = ["FixedBaseEngine"]
 
 DIGITS = 1 << WINDOW_BITS
-
-
-def scalar_windows(scalars: Sequence[int], modulus: int, device) -> torch.Tensor:
-    """Scalars -> (32, N) int32 radix-2^8 digits, the fixed-base table's
-    window digits."""
-    return digits_from_limbs(scalars_to_limbs(scalars, modulus, device), WINDOW_BITS)
 
 
 class FixedBaseEngine:
@@ -72,6 +66,6 @@ class FixedBaseEngine:
         n = len(scalars)
         if n == 0:
             return []
-        windows = scalar_windows(scalars, self.r, self.bg.K.device)
+        windows = scalars_to_windows(scalars, self.r, self.bg.K.device)
         return self.bg.unpack(self.batch_mul_device(windows))[:n]
 

@@ -42,6 +42,7 @@ __all__ = [
     "bucket_count",
     "choose_window_bits",
     "combine_window_sums",
+    "scalars_to_windows",
     "WINDOW_BITS",
     "NUM_WINDOWS",
 ]
@@ -52,9 +53,6 @@ NUM_WINDOWS = 32
 
 SCALAR_BITS = 254  # BN128 r bit length
 _TILE_LANES = 2048
-# memory budget for one window group's partial sums, in the JAX layout's
-# bytes (so that windows are grouped as the JAX engine groups them)
-_GROUP_BYTES = 3 << 30
 
 
 def scalars_to_limbs(scalars: Sequence[int], modulus: int, device) -> torch.Tensor:
@@ -63,6 +61,12 @@ def scalars_to_limbs(scalars: Sequence[int], modulus: int, device) -> torch.Tens
     yields MSM digits directly."""
     return torch.from_numpy(ints_to_limbs_np([s % modulus for s in scalars])).to(device)
 
+
+def scalars_to_windows(scalars: Sequence[int], modulus: int, device) -> torch.Tensor:
+    """Scalars -> (32, N) int32 radix-2^8 digits: the fixed-base table's
+    window digits (``WINDOW_BITS``).  The JAX package's name; its 8-bit
+    limbs are these digits."""
+    return digits_from_limbs(scalars_to_limbs(scalars, modulus, device), WINDOW_BITS)
 
 
 def num_windows(c: int) -> int:
@@ -141,9 +145,13 @@ class MSMEngine:
     final exact combination step.
 
     ``tile_threshold``: point counts below this use the simple (sort + one
-    log-scan) path; above it the tiled pipeline.  ``tile_lanes``: lanes per
-    serial step of the tiled path (tests lower it to reach that path at a
-    small size).  ``complete``: use the complete group law instead of the
+    log-scan) path; above it the tiled pipeline.  ``tile_steps``: explicit
+    serial step count K of the tiled path; by default tiles are sized so
+    that each window contributes ``tile_lanes`` lanes (tests lower either
+    to reach that path at a small size).  ``group_bytes``: memory budget of
+    one window group's partial sums, counted in the JAX layout's bytes so
+    that both engines group windows alike; it bounds how many windows share
+    a pass.  ``complete``: use the complete group law instead of the
     incomplete+flag fast path — the fallback target.
     """
 
@@ -154,7 +162,9 @@ class MSMEngine:
         scalar_modulus: int,
         window_bits: int | None = None,
         tile_threshold: int = 8192,
+        tile_steps: int | None = None,
         tile_lanes: int = _TILE_LANES,
+        group_bytes: int = 3 << 30,
         complete: bool = False,
     ):
         self.bg = batch_group
@@ -162,7 +172,9 @@ class MSMEngine:
         self.r = scalar_modulus
         self.window_bits = window_bits
         self.tile_threshold = tile_threshold
+        self.tile_steps = tile_steps
         self.tile_lanes = tile_lanes
+        self.group_bytes = group_bytes
         self.complete = complete
         self._fallback = None
         self.fallback_hits = 0  # degeneracy-flag re-runs (observability)
@@ -179,7 +191,7 @@ class MSMEngine:
 
     def pad_quantum(self, n: int) -> int:
         if n >= self.tile_threshold:
-            return self.tile_lanes
+            return self.tile_steps or self.tile_lanes
         return 128
 
     def _coord_bytes(self) -> int:
@@ -188,13 +200,40 @@ class MSMEngine:
         return 3 * self.bg._arity * 32 * 4
 
     def _group_size(self, n: int, w: int) -> int:
-        by_mem = max(1, _GROUP_BYTES // (n * self._coord_bytes()))
+        by_mem = max(1, self.group_bytes // (n * self._coord_bytes()))
         return max(1, min(w, by_mem))
 
     def _tile_split(self, n: int):
         """(K serial steps, m lanes per window) for an n-lane stream."""
-        k = max(2, n // self.tile_lanes)
+        k = self.tile_steps or max(2, n // self.tile_lanes)
         return k, n // k
+
+    def _p_cap(self, n: int, c: int) -> int:
+        """Compaction width of a window's run partials: at most one run
+        opening per bucket plus one per tile lane, padded to 128."""
+        p_cap = min(n, bucket_count(c)[0] + self._tile_split(n)[1])
+        return p_cap + (-p_cap) % 128
+
+    def layout(self, n: int, c: int | None = None) -> dict:
+        """What :meth:`make_plans` gives an n-lane scalar vector, from the
+        engine's rules alone (no tensor): window width ``c``, windows ``w``;
+        on the tiled path the windows per group ``wg``, the zero windows
+        ``wpad`` that fill the last group, the ``groups``, the serial steps
+        ``k`` and lanes per window ``m`` of the accumulation, the
+        compaction width ``p_cap`` and the merge scan's ``seg_steps``.
+        Plans are group-independent, so a G2 engine given these plans runs
+        the same grouping."""
+        c = c or self.window_bits_for(n)
+        w = num_windows(c)
+        out = dict(n=n, c=c, w=w)
+        if n < self.tile_threshold:
+            return dict(out, mode="small", seg_steps=max(1, (n - 1).bit_length()))
+        wg = self._group_size(n, w)
+        wpad = (-w) % wg
+        k, m = self._tile_split(n)
+        p_cap = self._p_cap(n, c)
+        return dict(out, mode="tiled", wg=wg, wpad=wpad, groups=(w + wpad) // wg, k=k, m=m,
+                    p_cap=p_cap, seg_steps=max(1, (p_cap - 1).bit_length()))
 
     def _false(self):
         return torch.zeros((), dtype=torch.bool, device=self.device)
@@ -207,7 +246,6 @@ class MSMEngine:
         (wg, N): everything data-dependent that does not involve points."""
         wg, n = dig_g.shape
         k, m = self._tile_split(n)
-        m_buckets, _ = bucket_count(c)
         mag = dig_g.abs()
         smag, order = torch.sort(mag, dim=1, stable=True)
         sneg = torch.gather(dig_g, 1, order) < 0
@@ -220,8 +258,7 @@ class MSMEngine:
         nxt = torch.cat([mag3[1:], torch.full((1, wg, m), -8, dtype=mag3.dtype, device=mag3.device)])
         closed = nxt != mag3  # (K, Wg, m)
         flat_closed = closed.permute(1, 2, 0).reshape(wg, n)
-        p_cap = min(n, m_buckets + m)
-        p_cap += (-p_cap) % 128
+        p_cap = self._p_cap(n, c)
         pos = torch.cumsum(flat_closed.to(torch.int32), dim=1, dtype=torch.int32) - 1
         idx_flat = torch.where(flat_closed, pos, torch.full_like(pos, p_cap))
         idx3 = idx_flat.reshape(wg, m, k).permute(2, 0, 1).long().contiguous()
@@ -323,12 +360,11 @@ class MSMEngine:
         prover's three same-witness MSMs — G2 included — pay the sort once."""
         n = int(limbs.shape[1]) if n_lanes is None else n_lanes
         assert limbs.shape[1] == n, (limbs.shape, n)
-        w = num_windows(c)
+        lay = self.layout(n, c)
         digits = signed_digits_from_limbs(limbs, c)
-        if n < self.tile_threshold:
+        if lay["mode"] == "small":
             return {"mode": "small", "c": c, "n": n, "plan": self._plan_small_impl(digits)}
-        wg = self._group_size(n, w)
-        wpad = (-w) % wg
+        w, wg, wpad = lay["w"], lay["wg"], lay["wpad"]
         if wpad:
             digits = torch.cat([digits, torch.zeros((wpad, n), dtype=digits.dtype, device=digits.device)])
         plans = [self._plan_impl(digits[g0 : g0 + wg], c) for g0 in range(0, w + wpad, wg)]
@@ -382,7 +418,9 @@ class MSMEngine:
                 self.r,
                 window_bits=self.window_bits,
                 tile_threshold=self.tile_threshold,
+                tile_steps=self.tile_steps,
                 tile_lanes=self.tile_lanes,
+                group_bytes=self.group_bytes,
                 complete=True,
             )
         return self._fallback

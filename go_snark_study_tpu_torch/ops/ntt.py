@@ -21,7 +21,7 @@ takes the fused path on the TPU.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -227,3 +227,22 @@ class NTTEngine:
             return self.K.pack(pows)
 
         return self._cached(("coset", n, g, inverse), make)
+
+    def coset_shift(self, x: torch.Tensor, g: int = 5, inverse: bool = False, powers: torch.Tensor | None = None):
+        """Multiply coefficient i by g^i (or g^-i): maps a polynomial
+        between the subgroup domain H and the coset g·H.  ``powers``: the
+        table of :meth:`coset_powers`, when the caller holds it."""
+        if powers is None:
+            powers = self.coset_powers(x.shape[1], g, inverse)
+        return self.K.mul(x, powers)
+
+    # ------------------------------------------------------------------
+    # host conveniences
+    # ------------------------------------------------------------------
+    def ntt_ints(self, coeffs: List[int]) -> List[int]:
+        """Coefficients -> evaluations, as Python ints."""
+        return self.K.unpack(self.forward(self.K.pack(coeffs)))
+
+    def intt_ints(self, evals: List[int]) -> List[int]:
+        """Evaluations -> coefficients, as Python ints."""
+        return self.K.unpack(self.inverse(self.K.pack(evals)))

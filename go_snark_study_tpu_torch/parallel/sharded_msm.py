@@ -86,7 +86,9 @@ class ShardedMSMEngine(MSMEngine):
                 self.mesh,
                 window_bits=self.window_bits,
                 tile_threshold=self.tile_threshold,
+                tile_steps=self.tile_steps,
                 tile_lanes=self.tile_lanes,
+                group_bytes=self.group_bytes,
                 complete=True,
             )
         return self._fallback

@@ -62,12 +62,8 @@ def dry_shape_check(n_log2: int = 22, mesh_shape=(2, 8)) -> dict:
     c = eng.window_bits_for(local)
     w = num_windows(c)
     m_buckets, _ = bucket_count(c)
-    if local >= eng.tile_threshold:
-        _, lanes = eng._tile_split(local)
-        p_cap = min(local, m_buckets + lanes)
-        p_cap += (-p_cap) % 128
-    else:  # the small path: one sort over all windows, no compaction
-        p_cap = None
+    # the small path: one sort over all windows, no compaction
+    p_cap = eng._p_cap(local, c) if local >= eng.tile_threshold else None
     return {
         "tier": f"2^{n_log2}",
         "mesh": dict(zip(("host", "data"), mesh_shape)),

@@ -114,7 +114,7 @@ def test_import_loads_no_jax():
         "import go_snark_study_tpu_torch.cli, go_snark_study_tpu_torch.utils.keyfile\n"
         "import go_snark_study_tpu_torch.embed, go_snark_study_tpu_torch.server\n"
         "import go_snark_study_tpu_torch.externalverif, go_snark_study_tpu_torch.r1csqap.float_qap\n"
-        "import go_snark_study_tpu_torch.profiling\n"
+        "import go_snark_study_tpu_torch.profiling, go_snark_study_tpu_torch.ops.fields\n"
         "import go_snark_study_tpu_torch.parallel.checks, go_snark_study_tpu_torch.parallel.scaling\n"
         "import go_snark_study_tpu_torch.parallel.sharded_prover, go_snark_study_tpu_torch.graft_entry\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

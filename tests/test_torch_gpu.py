@@ -102,6 +102,49 @@ def test_msm_forms_match_plain_on_card(cuda_device, case):
 
 
 @pytest.mark.gpu
+def test_multi_group_msm_on_card(cuda_device, monkeypatch):
+    """A tiled MSM at 2^14 lanes whose 26 windows are split by a small
+    group_bytes into 3 groups of 10, the last with 4 zero windows, in G1 and
+    in G2 on the G1 plans: the kernels' window sums and flags equal the
+    plain forms' (plain PyTorch on the card), and the combined results the
+    host oracle (Σ k_i·s_i)·G."""
+    from go_snark_study_tpu_torch.bn128 import default_bn128
+    from go_snark_study_tpu_torch.ops import msm
+    from go_snark_study_tpu_torch.ops import msm_kernels as mk
+    from go_snark_study_tpu_torch.ops.curve_ops import G1Batch, G2Batch, tree_leaves
+    from go_snark_study_tpu_torch.ops.fixed_base import FixedBaseEngine
+
+    bn = default_bn128()
+    n = 1 << 14
+    rng = random.Random(17)
+    ks = [rng.randrange(1, C.R) for _ in range(n)]
+    scs = [rng.randrange(C.R) for _ in range(n)]
+    limbs = msm.scalars_to_limbs(scs, C.R, cuda_device)
+    windows = msm.scalars_to_windows(ks, C.R, cuda_device)
+    K = FieldKernels(C.Q, cuda_device)
+    g1_bytes = 10 * n * 3 * 32 * 4  # 10 G1 windows a group
+    plans = None
+    for bg, group in ((G1Batch(K), bn.g1), (G2Batch(K), bn.g2)):
+        aff = bg.to_affine(FixedBaseEngine(bg, group, group.g, C.R).batch_mul_device(windows))
+        eng = msm.MSMEngine(bg, group, C.R, group_bytes=g1_bytes)
+        c = eng.window_bits_for(n)
+        if plans is None:
+            plans = eng.make_plans(limbs, c)
+            assert (plans["wg"], plans["wpad"], len(plans["plans"])) == (10, 4, 3)
+        got, gbad = eng.window_sums_eager(aff, limbs, c, plans)
+        with monkeypatch.context() as m:
+            for name in ("apply", "seg_scan", "reduce"):
+                m.setattr(mk, name, getattr(mk, name + "_plain"))
+            want, wbad = eng.window_sums_eager(aff, limbs, c, plans)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(tree_leaves(got), tree_leaves(want)))
+        assert bool(gbad) == bool(wbad) is False
+        total = msm.combine_window_sums(group, bg.unpack(got), c)
+        expect = sum(k * s for k, s in zip(ks, scs)) % C.R
+        assert group.equal(total, group.mul_scalar(group.g, expect))
+
+
+@pytest.mark.gpu
 def test_card_proof_matches_jax_record(cuda_device):
     """Setup and prove on the card (device=None), with the seeds of the JAX
     record: the same vk and proof as JAX's FastGroth16, and it verifies."""
