@@ -100,10 +100,17 @@ Phases:
            mul_chain_r1cs (setup without host lists with its setup.* spans,
            a cold and a warm prove, verification, a wrong public that must
            fail, the key's device bytes, peak memory; K3 per prove must be
-           k3_per_prove's count and, at 2^20, K1's per prove the count the
-           plans predict, with no flag fired; a profiled 2^20 prove and
-           its prove.* spans); the 2^21 G1 MSM.  Then, outside the counts,
-           every kernel on the 2^20 prove's own inputs, timed beside its
+           k3_per_prove's count, K2's k2_per_prove's and, at 2^20, K1's
+           per prove the count the plans predict, with no flag fired; a
+           profiled 2^20 prove and its prove.* spans); the 2^21 G1 MSM.
+           Then, outside the counts, the host bridge on the 2^20 prove's
+           inputs: the C++ runtime must be built, and the prover's input
+           tensors (the three H inputs, w_limbs, wp_limbs) and the setup's
+           ptau commit vector, through the bytes-and-K2 route, must equal
+           the Python route's (Python ints, Montgomery form on the host)
+           bit for bit, each route timed per 2^20 vector; the commit
+           vector's commit must equal the key's.  Then every kernel on the
+           2^20 prove's own inputs, timed beside its
            bound and held against its plain version bit for bit with equal
            flags: K1's forms on the last, zero-padded window group of the
            witness plan in G1 and in G2 on that plan (the reduce on every
@@ -1261,6 +1268,26 @@ def k3_per_prove(n: int) -> int:
     return 7 * (leaves(n1) + leaves(n2))
 
 
+def k2_per_prove(n: int) -> int:
+    """K2 launches in one prove at domain n when no flag fires, from the
+    code: each H input's Montgomery entry (FieldKernels.pack_bytes, 3);
+    the H pipeline's own products (groth16_fast._h_pipeline: four 1/n
+    scales, four coset shifts, the coset product, the 1/Z scale, the
+    Montgomery exit: 11); the twiddle products of its seven transforms
+    (NTTEngine._transform_fourstep: the step table's, and one per level of
+    each column pass above the 16-point leaf; none below 2^14, where K4
+    takes the transform); and the Montgomery exits of the five MSMs'
+    window sums (four G1 MSMs x 3 coordinates, the G2 MSM's 6: 18)."""
+    from go_snark_study_tpu_torch.ops.ntt import NTTEngine
+
+    levels = lambda n_len: 0 if n_len <= NTTEngine.RADIX else 1 + levels(n_len // NTTEngine.RADIX)
+    per_transform = 0
+    if n >= NTTEngine.FOURSTEP_MIN:
+        n1, n2 = NTTEngine.split(n)
+        per_transform = levels(n1) + levels(n2) + 1
+    return 3 + 11 + 7 * per_transform + 18
+
+
 def k1_per_prove(fast, dpk):
     """K1's MSM-form launches that one prove's plans predict when no flag
     fires, and the plans' layouts: each of the five MSMs launches an apply
@@ -1447,8 +1474,10 @@ def ladder_tier(torch, fast, log_n: int, card: str) -> dict:
     assert not verify_proof(setup.vk, proof, [publics[0] + 1]), f"[{tag}] a wrong public input verifies"
     k1_pred, lays = k1_per_prove(fast, dpk)
     k1 = {k: per[k] for k in K1_FORMS}
-    k3_pred = k3_per_prove(dpk.n)
+    k3_pred, k2_pred = k3_per_prove(dpk.n), k2_per_prove(dpk.n)
     assert per["K3"] == k3_pred, f"[{tag}] K3 launched {per['K3']} times in a prove, predicted {k3_pred}"
+    assert hits != hits1 or per["K2"] == k2_pred, \
+        f"[{tag}] K2 launched {per['K2']} times in a prove, predicted {k2_pred}"
     if log_n == LADDER_TIERS[-1]:  # 2^20
         assert hits == hits1, f"[{tag}] a degeneracy flag fired in the warm prove"
         assert k1 == k1_pred, f"[{tag}] K1 launches per prove {k1}, the plans predict {k1_pred}"
@@ -1464,15 +1493,94 @@ def ladder_tier(torch, fast, log_n: int, card: str) -> dict:
           f"verifies, a wrong public fails; proving key {pk_bytes / 1e6:.1f} MB on the card, peak device memory "
           f"{peak / 2**20:.1f} MiB; degeneracy re-runs {hits - hits0} (warm prove {hits - hits1})  ({card})")
     print(f"[{tag}] launches in the warm prove: K1 by form {json.dumps(k1)} (total {sum(k1.values())}; the plans "
-          f"predict {json.dumps(k1_pred)}, total {sum(k1_pred.values())}), K2 {per['K2']}, K3 {per['K3']} "
-          f"(predicted {k3_pred}), K4 {per['K4']}  ({card})")
+          f"predict {json.dumps(k1_pred)}, total {sum(k1_pred.values())}), K2 {per['K2']} (predicted {k2_pred}), "
+          f"K3 {per['K3']} (predicted {k3_pred}), K4 {per['K4']}  ({card})")
     for name, lay in lays.items():
         print(f"[{tag}]   MSM {name}: {lay['n']} lanes, {group_layout(lay)}")
     return dict(constraints=r1cs.n_constraints, r1cs_s=t_r1cs, setup_s=t_setup, setup_spans_s=setup_rows,
                 prove_cold_s=t_cold, prove_s=t_warm, verify_s=t_verify, pk_bytes=pk_bytes, peak_bytes=peak,
                 profile=prof, prove_phases=host,
-                fallbacks=hits - hits0, prove_counts=per, k1_predicted=k1_pred, k3_predicted=k3_pred,
+                fallbacks=hits - hits0, prove_counts=per, k1_predicted=k1_pred, k2_predicted=k2_pred,
+                k3_predicted=k3_pred,
                 layouts={k: {f: v for f, v in lay.items()} for k, lay in lays.items()}, r1cs=r1cs, setup=setup)
+
+
+def ladder_bridge(torch, fast, tier: dict, card: str) -> dict:
+    """The host bridge on the 2^20 prove's own inputs (after the counts are
+    read).  The card route: ``FastGroth16._prove_inputs`` (the witness and
+    the C++ products cross as bytes, relaid on the card; each H input into
+    Montgomery form by one K2 product) and ``scalars_to_windows`` of the
+    setup's ptau commit vector (the powers-of-tau ladder from the setup's
+    toxic waste).  The Python route: the same values as Python ints, the
+    Montgomery form taken on the host (``FieldKernels.pack_python``,
+    ``ints_to_limbs_np``), the limbs copied to the card; beside it the JAX
+    bridge's own route (``NativeField.pack_ints``: C++ Montgomery form,
+    relaid on the host).  Every tensor must be equal across routes, bit for
+    bit, and the commit vector's fixed-base commit must equal the key's
+    ptau.  Each route is timed per 2^20 vector with host clocks around a
+    synchronised call.  Returns the numbers and the card route's tensors."""
+    from go_snark_study_tpu_torch import native
+    from go_snark_study_tpu_torch.bn128 import constants as C
+    from go_snark_study_tpu_torch.ops.curve_ops import tree_leaves
+    from go_snark_study_tpu_torch.ops.limbs import bytes_to_limbs, ints_to_limbs_np
+    from go_snark_study_tpu_torch.ops.msm import WINDOW_BITS, digits_from_limbs, scalars_to_windows
+
+    assert native.available(), "the C++ host runtime (native/libgosnark_native.so) is not built"
+    r1cs, setup = tier["r1cs"], tier["setup"]
+    dpk = setup.pk._device
+    n, r, Kr, dev = dpk.n, C.R, fast.Kr, fast.device
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the card route, as prove takes it
+    (a_b, b_b, c_b, w_b), t_bytes = clock(r1cs._row_evals_bytes)
+    (w_limbs, wp_limbs, h_in), t_inputs = clock(lambda: fast._prove_inputs(r1cs, dpk))
+    card_pack = [clock(lambda: Kr.pack_bytes(v, lanes=n))[1] for v in (a_b, b_b, c_b)]
+    _, t_w_card = clock(lambda: bytes_to_limbs(w_b, dev, dpk.m_pad))
+    # the Python route and the JAX bridge's route, from the same values as ints
+    evals, t_ints = clock(r1cs.row_evals)
+    pad = lambda v, k: list(v) + [0] * (k - len(v))
+    py_pack, nat_pack = [], []
+    for got, v in zip(h_in, evals):
+        want, t = clock(lambda: torch.from_numpy(Kr.pack_python(pad(v, n))).to(dev))
+        assert torch.equal(got, want), "an H input: the card route differs from the Python route"
+        py_pack.append(t)
+        want, t = clock(lambda: torch.from_numpy(Kr.pack_np(pad(v, n))).to(dev))
+        assert torch.equal(got, want), "an H input: the card route differs from NativeField.pack_ints"
+        nat_pack.append(t)
+    w = [x % r for x in r1cs.witness]
+    lo = dpk.lo
+    want_w, t_w_py = clock(lambda: torch.from_numpy(ints_to_limbs_np(pad(w, dpk.m_pad))).to(dev))
+    want_wp = torch.from_numpy(ints_to_limbs_np(pad(w[lo:], dpk.mp_pad))).to(dev)
+    assert torch.equal(w_limbs, want_w), "w_limbs: the card route differs from the Python route"
+    assert torch.equal(wp_limbs, want_wp), "wp_limbs: the card route differs from the Python route"
+    # one setup commit vector: ptau's scalars, tau^i Z(tau)/delta for i < n
+    tox = setup.toxic
+    ztd = (pow(tox.t, n, r) - 1) * pow(tox.kdelta, -1, r) % r
+    ladder, acc = [], ztd
+    for _ in range(n):
+        ladder.append(acc)
+        acc = acc * tox.t % r
+    scs = pad(ladder, dpk.n_pad)
+    win, t_commit_card = clock(lambda: scalars_to_windows(scs, r, dev))
+    want, t_commit_py = clock(lambda: digits_from_limbs(torch.from_numpy(ints_to_limbs_np(scs)).to(dev), WINDOW_BITS))
+    assert torch.equal(win, want), "the ptau commit vector: the card route differs from the Python route"
+    aff = fast.g1b.to_affine(fast.fb_g1.batch_mul_device(win))
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(aff), tree_leaves(dpk.ptau))), \
+        "the ptau commit vector does not commit to the key's ptau"
+    out = dict(bridge_row_evals_bytes_s=t_bytes, bridge_row_evals_ints_s=t_ints, bridge_prove_inputs_s=t_inputs,
+               bridge_pack_s=card_pack, bridge_python_pack_s=py_pack, bridge_native_pack_s=nat_pack,
+               bridge_witness_s=dict(card=t_w_card, python=t_w_py),
+               bridge_commit_s=dict(card=t_commit_card, python=t_commit_py))
+    print(f"[ladder] host bridge at 2^{n.bit_length() - 1}, bit for bit equal across routes (the three H inputs, "
+          f"w_limbs, wp_limbs, the ptau commit vector, which commits to the key's ptau): "
+          f"{json.dumps(out)}  ({card})")
+    return dict(out, inputs=(w_limbs, wp_limbs, h_in))
 
 
 def held_row(torch, held: list, kernel: str, shape: str, got, want, arity: int = 0, flags: bool = False):
@@ -1522,7 +1630,7 @@ def plain_call(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def ladder_vs_plain(torch, clock_hz, fast, tier: dict, card: str):
+def ladder_vs_plain(torch, clock_hz, fast, tier: dict, inputs, card: str):
     """Every kernel of the ladder path on the 2^20 prove's own shapes and
     inputs (after the counts are read): K1's apply, merge-scan and reduce
     forms on the last, zero-padded window group of the witness plan, in G1
@@ -1542,14 +1650,12 @@ def ladder_vs_plain(torch, clock_hz, fast, tier: dict, card: str):
     from go_snark_study_tpu_torch.ops import point_add as pa
     from go_snark_study_tpu_torch.ops.curve_ops import tree_leaves, tree_map
     from go_snark_study_tpu_torch.ops.fixed_base import DIGITS
-    from go_snark_study_tpu_torch.ops.msm import (WINDOW_BITS, MSMEngine, bucket_count, digits_from_limbs,
-                                                   scalars_to_limbs)
+    from go_snark_study_tpu_torch.ops.msm import WINDOW_BITS, MSMEngine, bucket_count, digits_from_limbs
     from go_snark_study_tpu_torch.profiling import kernel_cost
 
-    r1cs, dpk = tier["r1cs"], tier["setup"].pk._device
+    dpk = tier["setup"].pk._device
     held, sites, plain_ms = [], [], {}
-    w = [x % C.R for x in r1cs.witness]
-    w_limbs = scalars_to_limbs(w + [0] * (dpk.m_pad - len(w)), C.R, fast.device)
+    w_limbs, _, h_in = inputs  # the prove's own (FastGroth16._prove_inputs)
     eng = fast.msm_g1
     c = eng.window_bits_for(dpk.m_pad)
     lay = eng.layout(dpk.m_pad, c)
@@ -1599,9 +1705,7 @@ def ladder_vs_plain(torch, clock_hz, fast, tier: dict, card: str):
         print(f"[ladder] G{arity} to_affine and to_affine_tiled at {dpk.m_pad} lanes, in turns: {json.dumps(secs)} s; "
               f"peak bytes above the input {json.dumps(peak)}; bit for bit equal  ({card})")
         del jac, out
-    a_e, b_e, c_e = r1cs.row_evals()
     n = dpk.n
-    pack = lambda v: fast.Kr.pack(list(v) + [0] * (n - len(v)))
     leaves, coset = [], []
     small_ntt, coset_shift = ntt_mod.small_ntt, fast.ntt.coset_shift
 
@@ -1617,7 +1721,7 @@ def ladder_vs_plain(torch, clock_hz, fast, tier: dict, card: str):
 
     ntt_mod.small_ntt, fast.ntt.coset_shift = rec_small, rec_shift
     try:
-        fast._get_h_jit(n, dpk.n_pad)(pack(a_e), pack(b_e), pack(c_e), *fast._ntt_args(n))
+        fast._get_h_jit(n, dpk.n_pad)(*h_in, *fast._ntt_args(n))
     finally:
         ntt_mod.small_ntt = small_ntt
         del fast.ntt.coset_shift
@@ -1738,8 +1842,11 @@ def run_ladder(torch, clock_hz, card: str) -> dict:
     for k in K1_FORMS + ("K2", "K3"):
         assert counts[k] > 0, f"{k} not launched on the ladder path"
     top = tiers[LADDER_TIERS[-1]]
-    held, sites, affine = step("held against plain", lambda: ladder_vs_plain(torch, clock_hz, fast, top, card))
-    del top["setup"], top["r1cs"]
+    bridge = step("host bridge", lambda: ladder_bridge(torch, fast, top, card))
+    inputs = bridge.pop("inputs")
+    held, sites, affine = step("held against plain",
+                               lambda: ladder_vs_plain(torch, clock_hz, fast, top, inputs, card))
+    del top["setup"], top["r1cs"], inputs
     m20, m21 = msm[LADDER_MSM_LOGS[0]], msm[LADDER_MSM_LOGS[1]]
     line = {"card": card, f"msm_g1_points_per_sec_2^{LADDER_MSM_LOGS[0]}": m20["points_per_sec"],
             f"msm_2^{LADDER_MSM_LOGS[0]}_ms": m20["ms"], f"ntt_2^{LADDER_NTT_LOG}_ms": ntt["ms"],
@@ -1753,6 +1860,8 @@ def run_ladder(torch, clock_hz, card: str) -> dict:
                  f"msm_2^{LADDER_MSM_LOGS[1]}_pts_per_sec": m21["points_per_sec"],
                  "msm_fallback_hits": m20["fallback_hits"] + m21["fallback_hits"],
                  "prove_fallback_hits": sum(t["fallbacks"] for t in tiers.values()),
+                 **bridge, f"prove_phases_2^{LADDER_TIERS[-1]}": top["prove_phases"],
+                 f"k2_per_prove_2^{LADDER_TIERS[-1]}": top["prove_counts"]["K2"],
                  "warmup_steps_s": warm, "step_s": secs, "msm": msm, "ntt": ntt, "tiers": tiers,
                  "launches": counts, "held_against_plain": held, "sites": sites, "affine": affine})
     print(f"[ladder] seconds by step: {json.dumps({k: round(v, 1) for k, v in secs.items()})}  ({card})")

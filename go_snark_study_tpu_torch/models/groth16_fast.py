@@ -9,7 +9,8 @@ Mirrors ``go_snark_study_tpu/models/groth16_fast.py`` (``FastGroth16``,
     values, commits with the fixed-base engine (K1 adds), and keeps the
     proving key ON DEVICE, affine-normalised (one tree batch inversion on
     K2), so every proof MSM runs mixed adds;
-  * prove packs the witness, builds one signed-digit sort plan shared by
+  * prove hands the witness and the three row evaluations to the device
+    as bytes (``_prove_inputs``), builds one signed-digit sort plan shared by
     the three same-witness MSMs (G2 included), runs four G1 MSMs and one G2
     MSM (K1), each with its degeneracy flag and complete-formula re-run,
     builds H(x) with the coset-trick NTT pipeline (K3 from 2^14 up, K4
@@ -38,8 +39,8 @@ from .. import _build
 from ..bn128 import constants as C
 from ..ops.curve_ops import G1Batch, G2Batch, tree_map
 from ..ops.fixed_base import FixedBaseEngine
-from ..ops.limbs import FieldKernels, resolve_device
-from ..ops.msm import MSMEngine, combine_window_sums, scalars_to_limbs, scalars_to_windows
+from ..ops.limbs import LIMBS, FieldKernels, bytes_to_limbs, resolve_device
+from ..ops.msm import MSMEngine, combine_window_sums, scalars_to_windows
 from ..ops.ntt import NTTEngine
 from ..profiling import span
 from ..synthetic import SparseR1CS
@@ -93,6 +94,7 @@ class FastGroth16:
         self._fb_g1: Optional[FixedBaseEngine] = None
         self._fb_g2: Optional[FixedBaseEngine] = None
         self._sharded_provers: dict = {}
+        self._h_progs: dict = {}
 
     # -- fixed-base engines (their host tables are built on first use) --
     @property
@@ -372,7 +374,11 @@ class FastGroth16:
     def _get_h_jit(self, n: int, n_pad: int):
         """H(x) program: evaluation-form a, b, c -> canonical H-coefficient
         limbs (the MSM digit source), padded to the ptau lane count.  The
-        name follows the JAX package; PyTorch runs it eagerly."""
+        name follows the JAX package; PyTorch runs it eagerly.  One program
+        per (n, n_pad), kept: its two constants are packed once."""
+        key = (n, n_pad)
+        if key in self._h_progs:
+            return self._h_progs[key]
         h_pipe = self._h_pipeline(n)
         Kr = self.Kr
         pad = n_pad - n
@@ -383,7 +389,29 @@ class FastGroth16:
                 h_plain = torch.nn.functional.pad(h_plain, (0, pad))
             return h_plain
 
+        self._h_progs[key] = h_digits
         return h_digits
+
+    def _prove_inputs(self, r1cs: SparseR1CS, dpk: DevicePk):
+        """The prover's host-to-device crossing: (w_limbs (8, m_pad) and
+        wp_limbs (8, mp_pad), the witness and its private part as plain
+        limbs, the MSM digit source; (a, b, c) (8, n), the row evaluations
+        in Montgomery form, the H pipeline's inputs).  The witness and the
+        three products cross once each, as canonical bytes
+        (``SparseR1CS._row_evals_bytes``); ``wp_limbs`` is a slice of
+        ``w_limbs`` on the device, and each H input enters the Montgomery
+        domain by one K2 product (``FieldKernels.pack_bytes``)."""
+        dv = self.device
+        with span("prove.row_evals"):
+            a_b, b_b, c_b, w_b = r1cs._row_evals_bytes()
+        with span("prove.witness", dv):
+            w_limbs = bytes_to_limbs(w_b, dv, dpk.m_pad)
+            m, lo = len(w_b) // 32, dpk.lo
+            wp_limbs = w_limbs.new_zeros((LIMBS, dpk.mp_pad))
+            wp_limbs[:, : m - lo] = w_limbs[:, lo:m]
+        with span("prove.h_inputs", dv):
+            h_in = tuple(self.Kr.pack_bytes(v, lanes=dpk.n) for v in (a_b, b_b, c_b))
+        return w_limbs, wp_limbs, h_in
 
     # ------------------------------------------------------------------
     def prove_sharded(self, r1cs: SparseR1CS, pk: Pk, mesh, rng=None) -> Proof:
@@ -408,7 +436,6 @@ class FastGroth16:
         ctx = self.ctx
         r = C.R
         g1, g2 = ctx.bn.g1, ctx.bn.g2
-        w = [x % r for x in r1cs.witness]
         n = _next_pow2(r1cs.n_constraints)
         lo = r1cs.n_public + 1
         dpk = self._device_pk(pk, n, lo)
@@ -417,14 +444,9 @@ class FastGroth16:
         s_rand = ctx.rand_fr(rng)
 
         dv = self.device
-        # host -> device: witness limbs + evaluation-form row combinations
-        with span("prove.witness", dv):
-            w_limbs = scalars_to_limbs(w + [0] * (dpk.m_pad - len(w)), r, dv)
-            wp_limbs = scalars_to_limbs(w[lo:] + [0] * (dpk.mp_pad - (len(w) - lo)), r, dv)
-        with span("prove.row_evals"):
-            a_e, b_e, c_e = r1cs.row_evals()
-        pad = n - len(a_e)
-        dev = lambda v: self.Kr.pack(list(v) + [0] * pad)
+        # host -> device, before any device work is enqueued: witness limbs
+        # and the evaluation-form row combinations
+        w_limbs, wp_limbs, (a_d, b_d, c_d) = self._prove_inputs(r1cs, dpk)
 
         c_m = self.msm_g1.window_bits_for(dpk.m_pad)
         c_p = self.msm_g1.window_bits_for(dpk.mp_pad)
@@ -442,8 +464,6 @@ class FastGroth16:
             s_b1 = self.msm_g1.window_sums_eager(dpk.b1, w_limbs, c_m, plans_w)
             s_cd = self.msm_g1.window_sums_eager(dpk.cdelta, wp_limbs, c_p)
             s_b2 = self.msm_g2.window_sums_eager(dpk.b2, w_limbs, c_m, plans_w)
-        with span("prove.h_inputs", dv):
-            a_d, b_d, c_d = dev(a_e), dev(b_e), dev(c_e)
         with span("prove.h", dv):
             h_digits = self._get_h_jit(n, dpk.n_pad)(a_d, b_d, c_d, *self._ntt_args(n))
             s_h = self.msm_g1.window_sums_eager(dpk.ptau, h_digits, c_h)

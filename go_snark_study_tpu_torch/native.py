@@ -1,10 +1,19 @@
 """ctypes bridge to the C++ host runtime (``native/gosnark_native.cpp``).
 
-Mirrors ``go_snark_study_tpu/native.py``, trimmed to the two entry points the
-port calls: :meth:`NativeField.sparse_matvec` (A·w mod p, the fast prover's
-row evaluations) and :meth:`NativeField.witness_eval` (field-mode witness
-computation).  The JAX package's ``pack_ints``/``unpack_ints`` make its
-(32, N) limb layout and are not carried over.
+Mirrors ``go_snark_study_tpu/native.py``:
+
+  * :meth:`NativeField.pack_ints` / :meth:`NativeField.unpack_ints` — python
+    ints <-> (8, N) int32 limb arrays in the port's layout (Montgomery by
+    default), the JAX package's host bridge; the library works in the JAX
+    (32, N) 8-bit layout and the arrays are relaid here;
+  * :meth:`NativeField.sparse_matvec_bytes` — A·w mod p as the library's
+    canonical 32-byte values, the fast prover's row evaluations, which
+    cross to the card as bytes (``ops.limbs.bytes_to_limbs``);
+    :meth:`NativeField.sparse_matvec` decodes them to ints;
+  * :meth:`NativeField.witness_eval` — field-mode witness computation.
+
+:func:`ints_to_bytes` and :func:`ints_from_bytes` are the byte encoding
+every crossing shares: 32 little-endian bytes a value, reduced mod p.
 
 The library is the repository's top-level ``native/libgosnark_native.so``.
 When it is absent, the first use runs ``make -C native`` (g++); if that
@@ -23,7 +32,7 @@ from typing import List, Sequence
 
 import numpy as np
 
-__all__ = ["available", "NativeField", "LIB_PATH"]
+__all__ = ["available", "NativeField", "LIB_PATH", "ints_to_bytes", "ints_from_bytes"]
 
 NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
 LIB_PATH = os.path.join(NATIVE_DIR, "libgosnark_native.so")
@@ -59,6 +68,20 @@ def _load():
     lib.gosnark_ctx_new.restype = ctypes.c_void_p
     lib.gosnark_ctx_new.argtypes = [ctypes.c_char_p]
     lib.gosnark_ctx_free.argtypes = [ctypes.c_void_p]
+    lib.gosnark_pack.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
+        ctypes.c_int,
+    ]
+    lib.gosnark_unpack.argtypes = [
+        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_char_p,
+        ctypes.c_int64,
+        ctypes.c_int,
+    ]
     lib.gosnark_sparse_matvec.argtypes = [
         ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_int64),
@@ -87,8 +110,33 @@ def _i64ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 
 
-def _ints_from_bytes(raw: bytes, n: int) -> List[int]:
-    return [int.from_bytes(raw[i * 32 : (i + 1) * 32], "little") for i in range(n)]
+def _i32ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def ints_to_bytes(xs: Sequence[int], p: int) -> bytes:
+    """Each x mod p as 32 little-endian bytes: canonical values (< p)."""
+    return b"".join((x % p).to_bytes(32, "little") for x in xs)
+
+
+def ints_from_bytes(raw: bytes) -> List[int]:
+    """The inverse of :func:`ints_to_bytes`: one int per 32 bytes."""
+    return [int.from_bytes(raw[i : i + 32], "little") for i in range(0, len(raw), 32)]
+
+
+def _bytes_to_words(a8: np.ndarray) -> np.ndarray:
+    """(32, N) int32 8-bit limbs (the library's layout) -> (8, N) int32
+    32-bit limbs (the port's)."""
+    n = a8.shape[1]
+    b = np.ascontiguousarray(a8.astype(np.uint8).reshape(8, 4, n).transpose(0, 2, 1))
+    return b.view("<u4").reshape(8, n).view(np.int32)
+
+
+def _words_to_bytes(a32: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`_bytes_to_words`."""
+    n = a32.shape[1]
+    b = np.ascontiguousarray(a32, dtype=np.int32).view("<u4").reshape(8, n, 1).view(np.uint8)  # (8, N, 4)
+    return np.ascontiguousarray(b.transpose(0, 2, 1)).reshape(32, n).astype(np.int32)
 
 
 class NativeField:
@@ -108,11 +156,30 @@ class NativeField:
             self.lib.gosnark_ctx_free(ctx)
 
     def ints_to_bytes(self, xs: Sequence[int]) -> bytes:
-        return b"".join((x % self.p).to_bytes(32, "little") for x in xs)
+        return ints_to_bytes(xs, self.p)
 
-    def sparse_matvec(self, indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, witness) -> List[int]:
+    def pack_ints(self, xs: Sequence[int], mont: bool = True) -> np.ndarray:
+        """python ints -> (8, N) int32 limb array, the port's layout
+        (Montgomery by default): the library's ``gosnark_pack``, whose
+        (32, N) 8-bit limbs are relaid into 32-bit limbs."""
+        n = len(xs)
+        out = np.empty((32, n), dtype=np.int32)
+        self.lib.gosnark_pack(self._ctx, self.ints_to_bytes(xs), _i32ptr(out), n, 1 if mont else 0)
+        return _bytes_to_words(out)
+
+    def unpack_ints(self, arr: np.ndarray, mont: bool = True) -> List[int]:
+        """(8, N) int32 limb array (canonical values) -> python ints, out of
+        the Montgomery domain by default: the inverse of :meth:`pack_ints`."""
+        a8 = _words_to_bytes(np.asarray(arr))
+        n = a8.shape[1]
+        buf = ctypes.create_string_buffer(32 * n)
+        self.lib.gosnark_unpack(self._ctx, _i32ptr(a8), buf, n, 1 if mont else 0)
+        return ints_from_bytes(buf.raw)
+
+    def sparse_matvec_bytes(self, indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, witness) -> bytes:
         """CSR rows (int64 ``indptr``, ``cols``, signed ``vals``) times the
-        witness, mod p: one value per row.  ``witness``: ints, or their
+        witness, mod p: the library's output, 32 little-endian bytes a row,
+        each value canonical (< p).  ``witness``: ints, or their
         :meth:`ints_to_bytes` encoding when several products share it."""
         indptr = np.ascontiguousarray(indptr, dtype=np.int64)
         cols = np.ascontiguousarray(cols, dtype=np.int64)
@@ -123,7 +190,11 @@ class NativeField:
             self._ctx, _i64ptr(indptr), _i64ptr(cols), _i64ptr(vals),
             witness if isinstance(witness, bytes) else self.ints_to_bytes(witness), n_rows, out,
         )
-        return _ints_from_bytes(out.raw, n_rows)
+        return out.raw
+
+    def sparse_matvec(self, indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, witness) -> List[int]:
+        """:meth:`sparse_matvec_bytes`, decoded: one int per row."""
+        return ints_from_bytes(self.sparse_matvec_bytes(indptr, cols, vals, witness))
 
     def witness_eval(self, ops: np.ndarray, seeded_witness: Sequence[int]) -> List[int]:
         """ops: (n_ops, 7) int64 in the encoding documented in the C++
@@ -134,4 +205,4 @@ class NativeField:
         buf = ctypes.create_string_buffer(self.ints_to_bytes(seeded_witness), 32 * n)
         if self.lib.gosnark_witness_eval(self._ctx, _i64ptr(ops), ops.shape[0], buf) != 0:
             raise ZeroDivisionError("witness evaluation: division by zero")
-        return _ints_from_bytes(buf.raw, n)
+        return ints_from_bytes(buf.raw)

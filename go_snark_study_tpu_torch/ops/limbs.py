@@ -20,18 +20,28 @@ the JAX package (R = 2^256 mod p, value < p); only the storage differs:
 
 Any trailing shape works: every op is lane-independent and the limb axis
 is axis 0.
+
+Host bridge (the JAX package's ``pack``/``unpack`` over its C++ runtime):
+values cross to the device as canonical little-endian 32-byte values
+(:func:`..native.ints_to_bytes`, or the C++ sparse product's output), one
+copy, relaid into limbs on the device (:func:`bytes_to_limbs`), and enter
+the Montgomery domain there by one product by R^2 (:meth:`FieldKernels.to_mont`,
+K2 on the card).  The host's Python Montgomery conversion
+(:meth:`FieldKernels.pack_python`) is the bridge's plain version.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
+from .. import native
 from . import mont_mul as _mm
 
-__all__ = ["LIMBS", "LIMB_BITS", "FieldKernels", "U64Field", "resolve_device"]
+__all__ = ["LIMBS", "LIMB_BITS", "FieldKernels", "U64Field", "resolve_device", "bytes_to_limbs"]
 
 LIMBS = 8
 LIMB_BITS = 32
@@ -56,6 +66,25 @@ def ints_to_limbs_np(xs: Sequence[int]) -> np.ndarray:
     buf = b"".join(int(x).to_bytes(32, "little") for x in xs)
     arr = np.frombuffer(buf, dtype="<u4").reshape(len(xs), LIMBS)
     return np.array(arr.T, order="C").view(np.int32)
+
+
+def bytes_to_limbs(buf: bytes, device, lanes: int | None = None) -> torch.Tensor:
+    """32-byte little-endian values -> (8, lanes) int32 limb tensor on
+    ``device``, zero padded (``lanes`` defaults to the value count).  The
+    bytes are copied to the device as they are and relaid there: viewed as
+    (N, 8) int32, transposed into the zero tensor.  No Montgomery product:
+    the limbs hold the values."""
+    n = len(buf) // 32
+    lanes = n if lanes is None else lanes
+    if len(buf) != 32 * n or lanes < n:
+        raise ValueError(f"{len(buf)} bytes: expected 32 a value and at most {lanes} values")
+    out = torch.zeros((LIMBS, lanes), dtype=torch.int32, device=device)
+    if n:
+        with warnings.catch_warnings():  # a read-only buffer: it is only read, by the copy below
+            warnings.simplefilter("ignore", UserWarning)
+            raw = torch.frombuffer(buf, dtype=torch.int32)
+        out[:, :n] = raw.to(device).view(n, LIMBS).t()
+    return out
 
 
 def limbs_np_to_ints(arr: np.ndarray) -> List[int]:
@@ -196,25 +225,52 @@ class FieldKernels:
         self.c = consts(p, self.device)
         self._r2 = torch.from_numpy(ints_to_limbs_np([self.R2])).to(self.device)
         self._one_mont = torch.from_numpy(ints_to_limbs_np([self.R])).to(self.device)
+        self._native_field = None
         e = p - 2
         self._inv_bits = [(e >> i) & 1 for i in range(e.bit_length())]
 
     # ------------------------------------------------------------------
     # host <-> device
     # ------------------------------------------------------------------
+    def _native(self):
+        """The C++ host runtime for this modulus (bound on first use), or
+        None where the library is absent."""
+        if not native.available():
+            return None
+        if self._native_field is None:
+            self._native_field = native.NativeField(self.p)
+        return self._native_field
+
     def pack_np(self, xs: Sequence[int], mont: bool = True) -> np.ndarray:
-        """python ints -> (8, N) numpy limb array."""
-        if mont:
-            p, R = self.p, self.R
-            xs = [x % p * R % p for x in xs]
-        else:
-            xs = [x % self.p for x in xs]
+        """python ints -> (8, N) numpy limb array: the C++ runtime's
+        :meth:`..native.NativeField.pack_ints` where the library is built,
+        else :meth:`pack_python` (the same values)."""
+        nf = self._native()
+        if nf is not None:
+            return nf.pack_ints(xs, mont=mont)
+        return self.pack_python(xs, mont)
+
+    def pack_python(self, xs: Sequence[int], mont: bool = True) -> np.ndarray:
+        """python ints -> (8, N) numpy limb array, the Montgomery conversion
+        in Python ints: the plain version of the bridge."""
+        p = self.p
+        xs = [x % p * self.R % p for x in xs] if mont else [x % p for x in xs]
         return ints_to_limbs_np(xs)
+
+    def pack_bytes(self, buf: bytes, mont: bool = True, lanes: int | None = None) -> torch.Tensor:
+        """Canonical little-endian 32-byte values (each < p, as
+        :func:`..native.ints_to_bytes` and the C++ sparse product make
+        them: K2 takes no other input) -> (8, lanes) limb tensor on this
+        device, zero padded (:func:`bytes_to_limbs`), then into the
+        Montgomery domain by :meth:`to_mont` (one K2 launch on the card)
+        when ``mont``."""
+        x = bytes_to_limbs(buf, self.device, lanes)
+        return self.to_mont(x) if mont else x
 
     def pack(self, xs: Sequence[int], mont: bool = True) -> torch.Tensor:
         """python ints -> (8, N) limb tensor on this device (Montgomery by
-        default)."""
-        return torch.from_numpy(self.pack_np(xs, mont=mont)).to(self.device)
+        default): each x mod p as bytes, then :meth:`pack_bytes`."""
+        return self.pack_bytes(native.ints_to_bytes(xs, self.p), mont)
 
     def unpack(self, arr: torch.Tensor, mont: bool = True) -> List[int]:
         """(8, N) limb tensor -> python ints (out of Montgomery domain: one

@@ -31,7 +31,8 @@ import torch
 from ..profiling import span
 from . import msm_kernels as _mk
 from .curve_ops import tree_leaves, tree_map
-from .limbs import LIMBS, ints_to_limbs_np, to_u64
+from ..native import ints_to_bytes
+from .limbs import LIMBS, bytes_to_limbs, to_u64
 
 __all__ = [
     "MSMEngine",
@@ -58,8 +59,9 @@ _TILE_LANES = 2048
 def scalars_to_limbs(scalars: Sequence[int], modulus: int, device) -> torch.Tensor:
     """Scalars -> (8, N) int32 32-bit limbs (plain, not Montgomery): the
     field layout, so that a Montgomery exit (``from_mont``) on the device
-    yields MSM digits directly."""
-    return torch.from_numpy(ints_to_limbs_np([s % modulus for s in scalars])).to(device)
+    yields MSM digits directly.  Each s mod ``modulus`` crosses as 32 bytes
+    and is relaid on the device (:func:`.limbs.bytes_to_limbs`)."""
+    return bytes_to_limbs(ints_to_bytes(scalars, modulus), device)
 
 
 def scalars_to_windows(scalars: Sequence[int], modulus: int, device) -> torch.Tensor:

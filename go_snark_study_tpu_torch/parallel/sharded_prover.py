@@ -35,6 +35,7 @@ import torch
 from ..bn128 import constants as C
 from ..models.groth16 import Pk, Proof
 from ..ops.curve_ops import tree_leaves
+from ..ops.limbs import bytes_to_limbs
 from ..ops.msm import MSMEngine, bucket_count, combine_window_sums, num_windows, scalars_to_limbs
 from .mesh import Mesh, all_gather, any_rank
 from .sharded_msm import _unflatten
@@ -158,6 +159,13 @@ class ShardedFastProver:
         mine = list(scalars[lo : lo + local])
         return scalars_to_limbs(mine + [0] * (local - len(mine)), C.R, self.fast.device)
 
+    def shard_bytes(self, buf: bytes, local: int, first: int = 0) -> torch.Tensor:
+        """Canonical 32-byte values (``SparseR1CS._row_evals_bytes``) ->
+        this rank's (8, local) plain limbs, values ``first + rank * local``
+        on, zero padded."""
+        lo = 32 * (first + self.rank * local)
+        return bytes_to_limbs(buf[lo : lo + 32 * local], self.fast.device, local)
+
     def _my_rows(self, rows: torch.Tensor, local: int) -> torch.Tensor:
         """(8, n) limbs -> this rank's (8, local) columns, zero padded."""
         lo = min(self.rank * local, rows.shape[1])
@@ -197,7 +205,6 @@ class ShardedFastProver:
         ctx = fast.ctx
         r = C.R
         g1, g2 = ctx.bn.g1, ctx.bn.g2
-        w = [x % r for x in r1cs.witness]
         n = _next_pow2(r1cs.n_constraints)
         lo = r1cs.n_public + 1
         spk = self.shard_pk(pk, n, lo)
@@ -212,8 +219,10 @@ class ShardedFastProver:
         c_p = eng1.window_bits_for(spk.local_mp)
         c_h = eng1.window_bits_for(spk.local_n)
 
-        w_limbs = self.shard_scalars(w, spk.local_m)
-        wp_limbs = self.shard_scalars(w[lo:], spk.local_mp)
+        # the witness and the row evaluations cross as bytes, as in prove
+        a_b, b_b, c_b, w_b = r1cs._row_evals_bytes()
+        w_limbs = self.shard_bytes(w_b, spk.local_m)
+        wp_limbs = self.shard_bytes(w_b, spk.local_mp, first=lo)
         plans_w = eng1.make_plans(w_limbs, c_m)
         plans_p = eng1.make_plans(wp_limbs, c_p)
 
@@ -224,10 +233,8 @@ class ShardedFastProver:
 
         # H(x) via the single-device coset pipeline on every rank, then this
         # rank's slice of the H digits for the ptau MSM
-        a_e, b_e, c_e = r1cs.row_evals()
-        pad = n - len(a_e)
-        dev = lambda v: fast.Kr.pack(list(v) + [0] * pad)
-        h_digits = fast._get_h_jit(n, n)(dev(a_e), dev(b_e), dev(c_e), *fast._ntt_args(n))
+        h_in = [fast.Kr.pack_bytes(v, lanes=n) for v in (a_b, b_b, c_b)]
+        h_digits = fast._get_h_jit(n, n)(*h_in, *fast._ntt_args(n))
         h_mine = self._my_rows(h_digits, spk.local_n)
         plans_h = eng1.make_plans(h_mine, c_h)
         pi_h = self._msm(eng1, spk.ptau, plans_h)

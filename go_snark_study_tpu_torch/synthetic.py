@@ -4,7 +4,8 @@ Mirrors ``go_snark_study_tpu/synthetic.py``: ``SparseR1CS`` with
 ``from_circuit`` (the bridge from a DSL-compiled circuit to the fast prover)
 and ``row_evals`` over the C++ sparse matvec (:mod:`.native`; the Python dot
 product gives the same values where the library is not built), and
-``mul_chain_r1cs``.
+``mul_chain_r1cs``.  The fast prover takes the row evaluations and the
+witness as bytes (``_row_evals_bytes``), never as Python ints.
 
 Shape of the chain: a multiplication chain  s_{k+1} = s_k * s_{k-1}  (mod r)
 with one public output — every constraint row has O(1) nonzeros, like real
@@ -96,6 +97,9 @@ class SparseR1CS:
             out = self._row_evals_native()
             if out is not None:
                 return out
+        return self._row_evals_python(r)
+
+    def _row_evals_python(self, r: int = FR_MOD) -> Tuple[List[int], List[int], List[int]]:
         w = self.witness
         dot = lambda row: sum(c * w[i] for i, c in row.items()) % r
         return (
@@ -123,18 +127,36 @@ class SparseR1CS:
             self._csr_cache = csr
         return self._csr_cache
 
-    def _row_evals_native(self):
-        """The three sparse products over Fr in C++, or None where the
-        library is absent or a coefficient has no signed 64-bit slot.  The
-        witness is encoded once for the three."""
+    def _products_native(self, wbytes: bytes):
+        """The three sparse products over Fr in C++ on the witness's bytes,
+        as the library's raw output (32 bytes a row), or None where the
+        library is absent or a coefficient has no signed 64-bit slot."""
         if not native.available():
             return None
         csr = self._csr()
         if csr is None:
             return None
         nf = _native_fr()
-        wbytes = nf.ints_to_bytes(self.witness)
-        return tuple(nf.sparse_matvec(indptr, cols, vals, wbytes) for indptr, cols, vals in csr)
+        return tuple(nf.sparse_matvec_bytes(indptr, cols, vals, wbytes) for indptr, cols, vals in csr)
+
+    def _row_evals_native(self):
+        """:meth:`_products_native` decoded to ints, or None."""
+        if not native.available():
+            return None
+        out = self._products_native(native.ints_to_bytes(self.witness, FR_MOD))
+        return None if out is None else tuple(native.ints_from_bytes(b) for b in out)
+
+    def _row_evals_bytes(self) -> Tuple[bytes, bytes, bytes, bytes]:
+        """(a, b, c, w): the three row evaluations over Fr and the witness
+        they share, each value canonical (< r) in 32 little-endian bytes —
+        what the fast prover hands to the device.  The C++ products where
+        :meth:`_products_native` runs, else the Python route's ints
+        encoded: the same bytes."""
+        wbytes = native.ints_to_bytes(self.witness, FR_MOD)
+        out = self._products_native(wbytes)
+        if out is None:
+            out = tuple(native.ints_to_bytes(v, FR_MOD) for v in self._row_evals_python(FR_MOD))
+        return out + (wbytes,)
 
 
 def mul_chain_r1cs(n_constraints: int, seed: int = 0) -> SparseR1CS:

@@ -128,6 +128,18 @@ def test_import_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_package_exports_match_jax():
+    """``ops`` and ``models`` export the JAX package's names."""
+    import go_snark_study_tpu.models as jax_models
+    import go_snark_study_tpu.ops as jax_ops
+    from go_snark_study_tpu_torch import models, ops
+    from go_snark_study_tpu_torch.models import ProtocolContext, default_context, set_msm_backend  # noqa: F401
+
+    assert ops.__all__ == jax_ops.__all__ and models.__all__ == jax_models.__all__
+    assert (ops.LIMBS, ops.LIMB_BITS, ops.FieldKernels) == (8, 32, FieldKernels)
+    assert isinstance(models.default_context(), models.ProtocolContext)
+
+
 def test_entry_points_without_a_card_raise(monkeypatch):
     from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
 

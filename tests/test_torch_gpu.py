@@ -145,6 +145,25 @@ def test_multi_group_msm_on_card(cuda_device, monkeypatch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("p", [C.Q, C.R], ids=["fq", "fr"])
+def test_card_route_pack_is_python_route_on_card(cuda_device, p):
+    """The host bridge's card route (bytes copied and relaid on the card,
+    then K2 by R^2) against the Python Montgomery route at 2^16 lanes,
+    bit for bit, Montgomery and plain; the edges 0, 1, p-1, p, -1 first."""
+    from go_snark_study_tpu_torch import native
+    from go_snark_study_tpu_torch.ops.msm import scalars_to_limbs
+
+    rng = random.Random(11)
+    xs = [0, 1, p - 1, p, -1] + [rng.randrange(p) for _ in range((1 << 16) - 5)]
+    K = FieldKernels(p, cuda_device)
+    for mont in (True, False):
+        want = torch.from_numpy(K.pack_python(xs, mont)).to(cuda_device)
+        assert torch.equal(K.pack(xs, mont), want), mont
+        assert torch.equal(K.pack_bytes(native.ints_to_bytes(xs, p), mont), want), mont
+    assert torch.equal(scalars_to_limbs(xs, p, cuda_device), torch.from_numpy(K.pack_python(xs, False)).to(cuda_device))
+
+
+@pytest.mark.gpu
 def test_card_proof_matches_jax_record(cuda_device):
     """Setup and prove on the card (device=None), with the seeds of the JAX
     record: the same vk and proof as JAX's FastGroth16, and it verifies."""
