@@ -118,11 +118,34 @@ Phases:
            the H pipeline's first coset product, K3 on its first three
            leaves; and to_affine against to_affine_tiled in turns.  Prints
            one {"ladder": ...} line with bench.py's metric names.
+  chunked  the JAX engine's accelerator configuration on the card: one
+           FastGroth16 (device=None) whose msm_g1 has both chunk families
+           (2^17 lanes at c = 13, 2^14 at c = 11 up to 2^15 lanes) and whose
+           msm_g2 has the big one only; its warmup(families=("big",
+           "small")) (each step's seconds); the tiers 2^14 (the witness in
+           2 small chunks, G2 on its own plan at c = 13) and 2^20 (a key
+           padded to 9 chunks, 1,179,648 lanes at at/b1/b2), each as a
+           ladder tier (setup, cold and warm prove, verification, a wrong
+           public that must fail; K1's launches per warm prove, the
+           cross-chunk adds included, must be what the layouts predict, K2
+           and K3 k2_per_prove's and k3_per_prove's; a profiled 2^20
+           prove); the 2^20 and 2^21 G1 MSMs as the ladder runs them, in 8
+           and 16 chunks, equal to (Σ s_i·k_i)·G.  After the counts are
+           read: the 2^20 key proved by the chunked and the default
+           (unchunked) engines in turns from one rng state, every proof
+           equal, and a profiled unchunked prove; then K1 at the chunk
+           shapes on the 2^20 prove's own inputs, timed beside its bound
+           and held bit for bit with equal flags against its plain
+           version: the apply and merge-scan forms on the last,
+           zero-padded chunk of the witness plan (G1, and G2 on that plan),
+           the per-lane jadd_f on the first two chunks' buckets (the
+           cross-chunk add, G1 and G2), the reduce on the sum of every
+           chunk's buckets (G1).  One {"chunked": ...} line.
 
 The kernel launch counts are set to 0 just before a path is driven and read
 just after (the parity flows: before and after each setup and proof; the
 sharded path: in each rank, before its setup and after its checks; the
-ladder: before its warmup and after its 2^21 MSM).  Each
+ladder and chunked phases: before the warmup and after the 2^21 MSM).  Each
 of the dsl, parity and cli phases prints one JSON line of its numbers.  The second-to-last line is one JSON object with a row per
 kernel; the last line is {"ok": true, "device": {...}}.  Any failure exits
 non-zero before that line.  Without a CUDA device the script exits 1.
@@ -139,7 +162,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "main", "small", "dsl", "parity", "cli", "sharded", "ladder")
+PHASES = ("build", "kernels", "main", "small", "dsl", "parity", "cli", "sharded", "ladder", "chunked")
 DEVICE = "cuda"
 MAIN_LOG, SMALL_LOG = 16, 12  # constraints of the main path and of the radix-2 path
 DSL_LOG = 16  # the dsl phase: a flat-code chain of 2^16 - 1 links, 2^16 constraints
@@ -177,6 +200,10 @@ LADDER_NTT_LOG = 20  # bench.py:419-444
 LADDER_SEED = 0xBEEF  # bench.py's rng
 NTT_SAMPLES = 4  # evaluations checked against a host Horner evaluation
 MODMUL_LANES, MODMUL_CHAIN, MODMUL_REPS = 1 << 20, 8, 4  # bench.py:446-476
+# the chunked phase: the JAX engine's chunk families (ops/msm.py), its tiers and MSMs
+BIG_CHUNK, SMALL_CHUNK = 1 << 17, 1 << 14
+CHUNK_TIERS = (14, 20)  # the small family's witness (2 chunks), the big family's (9 chunks)
+CHUNK_MSM_LOGS = (20, 21)  # 8 and 16 big chunks
 
 
 def card_line() -> str:
@@ -703,9 +730,15 @@ def profile_prove(torch, fast, r1cs, pk, rng, tag: str, card: str):
           f"{sum(e.count for e in events)} device launches of {len(events)} kinds  ({card})")
     print(f"[{tag}] K1 device ms in the profiled prove by kernel: "
           f"{json.dumps({k: round(v, 4) for k, v in k1.items()})}  ({card})")
+    k1_launches = {}
+    for e in events:
+        for k in ("point_add_kernel", "msm_apply", "msm_seg_step", "msm_reduce1", "msm_reduce2"):
+            if k in e.key:
+                k1_launches[k] = k1_launches.get(k, 0) + e.count
     for e in sorted(events, key=dev, reverse=True)[:8]:
         print(f"[{tag}]   {dev(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
-    return dict(wall_s=wall, busy_s=busy_us / 1e6, launches=sum(e.count for e in events))
+    return dict(wall_s=wall, busy_s=busy_us / 1e6, launches=sum(e.count for e in events), k1_ms=k1,
+                k1_launches=k1_launches)
 
 
 def run_path(torch, tag: str, r1cs, seed_rng: int, timed_second: bool, card: str):
@@ -1289,29 +1322,37 @@ def k2_per_prove(n: int) -> int:
 
 
 def k1_per_prove(fast, dpk):
-    """K1's MSM-form launches that one prove's plans predict when no flag
-    fires, and the plans' layouts: each of the five MSMs launches an apply
-    per window group, the merge-scan steps of each group and two reduce
-    launches.  The witness plan serves At and B1 in G1 and B2 in G2."""
-    lays = {name: fast.msm_g1.layout(lanes) for name, lanes in
-            (("at", dpk.m_pad), ("b1", dpk.m_pad), ("b2", dpk.m_pad), ("cdelta", dpk.mp_pad), ("h", dpk.n_pad))}
+    """K1's launches that one prove's plans predict when no flag fires, and
+    the plans' layouts: each of the five MSMs launches an apply per window
+    group of each chunk, the merge-scan steps of each, two reduce launches,
+    and a per-lane add per chunk after the first (the cross-chunk ``badd``).
+    The witness plan serves At and B1 in G1 and B2 in G2, unless G2's
+    window width differs (no small chunk family there): then G2 plans by
+    its own rules."""
+    g1, g2 = fast.msm_g1, fast.msm_g2
+    b2 = g1 if g2.window_bits_for(dpk.m_pad) == g1.window_bits_for(dpk.m_pad) else g2
+    lays = {name: eng.layout(lanes) for name, eng, lanes in
+            (("at", g1, dpk.m_pad), ("b1", g1, dpk.m_pad), ("b2", b2, dpk.m_pad), ("cdelta", g1, dpk.mp_pad),
+             ("h", g1, dpk.n_pad))}
     out = {"K1": 0, "K1 apply": 0, "K1 seg-scan": 0, "K1 reduce": 0}
     for lay in lays.values():
-        groups = lay["groups"] if lay["mode"] == "tiled" else 1
-        out["K1 apply"] += groups if lay["mode"] == "tiled" else 0
-        out["K1 seg-scan"] += groups * lay["seg_steps"]
+        applies = lay["groups"] * lay["chunks"] if lay["mode"] != "small" else 0
+        out["K1 apply"] += applies
+        out["K1 seg-scan"] += max(applies, 1) * lay["seg_steps"]
         out["K1 reduce"] += 2
+        out["K1"] += lay.get("badds", 0)
     return out, lays
 
 
 def group_layout(lay: dict) -> str:
     if lay["mode"] == "small":
         return f"small path, c {lay['c']}"
-    return (f"c {lay['c']}, {lay['w']} windows in {lay['groups']} group(s) of {lay['wg']} ({lay['wpad']} zero), "
-            f"K {lay['k']} x m {lay['m']}, p_cap {lay['p_cap']}, {lay['seg_steps']} merge-scan steps")
+    chunks = f"{lay['chunks']} chunk(s) of {lay['span']} lanes, " if lay["mode"] == "chunk" else ""
+    return (f"{chunks}c {lay['c']}, {lay['w']} windows in {lay['groups']} group(s) of {lay['wg']} ({lay['wpad']} "
+            f"zero), K {lay['k']} x m {lay['m']}, p_cap {lay['p_cap']}, {lay['seg_steps']} merge-scan steps")
 
 
-def ladder_msm(torch, fast, log_n: int, rng, runs: int, card: str) -> dict:
+def ladder_msm(torch, fast, log_n: int, rng, runs: int, card: str, phase: str = "ladder") -> dict:
     """bench.py's G1 MSM through the port: 2^log_n distinct points k_i·G
     (random k_i) made on the card by the fixed-base engine and normalised
     by to_affine_tiled, random scalars, then window_sums_checked and the
@@ -1343,10 +1384,10 @@ def ladder_msm(torch, fast, log_n: int, rng, runs: int, card: str) -> dict:
         total = combine_window_sums(bn.g1, fast.g1b.unpack(sums), c)
         secs.append(time.perf_counter() - t0)
     expect = sum(s * k for s, k in zip(scalars, ks)) % C.R
-    assert bn.g1.equal(total, bn.g1.mul_scalar(bn.g1.g, expect)), f"[ladder] G1 MSM 2^{log_n} != (sum s_i k_i) G"
+    assert bn.g1.equal(total, bn.g1.mul_scalar(bn.g1.g, expect)), f"[{phase}] G1 MSM 2^{log_n} != (sum s_i k_i) G"
     hits = eng.fallback_hits - hits0
     ms = secs[min(1, runs - 1)] * 1e3  # bench.py times the second run
-    print(f"[ladder] G1 MSM 2^{log_n}: {ms:.1f} ms ({n / ms * 1e3:.0f} points/s; runs {secs} s), "
+    print(f"[{phase}] G1 MSM 2^{log_n}: {ms:.1f} ms ({n / ms * 1e3:.0f} points/s; runs {secs} s), "
           f"equals the host oracle; {group_layout(lay)}; degeneracy re-runs {hits}; random scalars and "
           f"multipliers {t_rand:.2f} s, points k_i G on the card (fixed-base, to_affine_tiled) and scalar limbs "
           f"{t_points:.2f} s, peak device memory of that step {peak_points / 2**20:.1f} MiB  ({card})")
@@ -1420,7 +1461,7 @@ def ladder_modmul(torch, card: str) -> dict:
     return dict(modmul_mps=per_s / 1e6)
 
 
-def ladder_tier(torch, fast, log_n: int, card: str) -> dict:
+def ladder_tier(torch, fast, log_n: int, card: str, phase: str = "ladder") -> dict:
     """One rung of bench.py's ladder (bench.py:513-576) on the phase's one
     engine: mul_chain_r1cs(2^log_n, seed=1), setup without host lists (its
     setup.* spans printed), a cold and a warm prove, verification and a
@@ -1432,7 +1473,7 @@ def ladder_tier(torch, fast, log_n: int, card: str) -> dict:
     from go_snark_study_tpu_torch.profiling import launch_counts
     from go_snark_study_tpu_torch.synthetic import mul_chain_r1cs
 
-    tag = f"ladder 2^{log_n}"
+    tag = f"{phase} 2^{log_n}"
     t0 = time.perf_counter()
     r1cs = mul_chain_r1cs(1 << log_n, seed=1)
     t_r1cs = time.perf_counter() - t0
@@ -1869,6 +1910,216 @@ def run_ladder(torch, clock_hz, card: str) -> dict:
     return dict(counts=counts, sites=sites)
 
 
+def chunked_engines(fast):
+    """The JAX package's accelerator configuration of ``fast``'s engines:
+    (G1 with both chunk families, G2 with the big one only)."""
+    from go_snark_study_tpu_torch.bn128 import constants as C
+    from go_snark_study_tpu_torch.ops.msm import MSMEngine
+
+    bn = fast.ctx.bn
+    return (MSMEngine(fast.g1b, bn.g1, C.R, chunk_lanes=BIG_CHUNK, small_chunk_lanes=SMALL_CHUNK),
+            MSMEngine(fast.g2b, bn.g2, C.R, chunk_lanes=BIG_CHUNK, small_chunk_lanes=0))
+
+
+def same_proof(bn, a, b) -> bool:
+    return bn.g1.equal(a.pi_a, b.pi_a) and bn.g2.equal(a.pi_b, b.pi_b) and bn.g1.equal(a.pi_c, b.pi_c)
+
+
+def chunked_turns(torch, fast, tier: dict, engines: dict, card: str) -> dict:
+    """The 2^20 key proved by the chunked and the unchunked (default)
+    engines in turns (chunked, unchunked, unchunked, chunked), each from
+    random.Random(3), the warm prove's rng state: the four proofs must be
+    equal as group elements.  Then one unchunked prove under the profiler."""
+    bn = fast.ctx.bn
+    r1cs, pk = tier["r1cs"], tier["setup"].pk
+    secs, proofs = {"chunked": [], "unchunked": []}, []
+    for name in ("chunked", "unchunked", "unchunked", "chunked"):
+        fast.msm_g1, fast.msm_g2 = engines[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proofs.append(fast.prove(r1cs, pk, rng=random.Random(3)))
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+    assert all(same_proof(bn, proofs[0], p) for p in proofs[1:]), \
+        "[chunked 2^20] the chunked proof is not the unchunked engines' proof"
+    fast.msm_g1, fast.msm_g2 = engines["unchunked"]
+    prof = profile_prove(torch, fast, r1cs, pk, random.Random(4), "chunked 2^20, unchunked engines", card)
+    fast.msm_g1, fast.msm_g2 = engines["chunked"]
+    print(f"[chunked 2^20] chunked and unchunked engines on one key, in turns: {json.dumps(secs)} s; "
+          f"the four proofs are equal  ({card})")
+    return dict(prove_s=secs, unchunked_profile=prof)
+
+
+def chunked_vs_plain(torch, clock_hz, fast, tier: dict, card: str):
+    """K1 at the chunk shapes of the 2^20 prove's own inputs (after the
+    counts are read): the apply and merge-scan forms on the last,
+    zero-padded chunk of the witness plan, in G1 (At) and G2 (B2 on that
+    plan); the per-lane jadd_f on the first two chunks' buckets (the
+    cross-chunk add), G1 and G2; the reduce on the buckets of all chunks
+    added together, G1.  Each is timed on the card beside its bound first,
+    then held against its plain version, bit for bit with equal flags.
+    Returns (held, sites)."""
+    from go_snark_study_tpu_torch.ops import msm_kernels as mk
+    from go_snark_study_tpu_torch.ops import point_add as pa
+    from go_snark_study_tpu_torch.ops.curve_ops import tree_map
+    from go_snark_study_tpu_torch.ops.msm import bucket_count
+    from go_snark_study_tpu_torch.profiling import kernel_cost
+
+    dpk = tier["setup"].pk._device
+    w_limbs = fast._prove_inputs(tier["r1cs"], dpk)[0]
+    eng = fast.msm_g1
+    c = eng.window_bits_for(dpk.m_pad)
+    lay = eng.layout(dpk.m_pad, c)
+    plans = eng.make_plans(w_limbs, c)
+    assert plans["mode"] == "chunk" and len(plans["chunks"]) == lay["chunks"] and lay["groups"] == 1, lay
+    span, last = plans["span"], plans["chunks"][-1][0]
+    sdig = last["comp_dig"]
+    m_buckets, d_chunk = bucket_count(c)
+    engs = {1: (fast.msm_g1, dpk.at), 2: (fast.msm_g2, dpk.b2)}
+    chunk = lambda pts, ci: tree_map(lambda t: eng._chunk_of(t, ci * span, span), pts)
+
+    def buckets(arity, ci):
+        e, pts = engs[arity]
+        return e._apply_impl(chunk(pts, ci), plans["chunks"][ci][0], c)[0]
+
+    pair = {a: (buckets(a, 0), buckets(a, 1)) for a in (1, 2)}
+    acc = buckets(1, 0)
+    for ci in range(1, len(plans["chunks"])):
+        acc, _ = eng._badd(acc, buckets(1, ci))
+    lasts = {a: chunk(engs[a][1], len(plans["chunks"]) - 1) for a in (1, 2)}
+    held, sites, plain_ms = [], [], {}
+    shape_tag = f"last chunk of {lay['chunks']} ({span} lanes, {dpk.m + span - dpk.m_pad} live)"
+
+    # 1. times, the kernels alone
+    for arity in (1, 2):
+        pts = lasts[arity]
+        comp, _ = mk.apply(pts, last, arity, False)
+        calls = {"apply": lambda: mk.apply(pts, last, arity, False),
+                 "seg-scan": lambda: mk.seg_scan(comp, sdig, arity, False),
+                 "reduce-1": lambda: mk.reduce(acc, d_chunk, 1, False)}
+        calls["reduce-2"] = calls["reduce-1"]
+        bk = acc if arity == 1 else pair[2][0]
+        for site, kern, names, nbytes, ops, shape, per_call in msm_form_costs(torch, last, span, arity, bk, d_chunk):
+            if site.startswith("reduce") and arity == 2:
+                continue
+            sites.append(time_site(torch, clock_hz, kern.name, f"chunk {site}", shape, calls[site], names,
+                                   3 if site != "seg-scan" else 5, nbytes, ops, per_call, group=f"G{arity}", c=c))
+        b0, b1 = pair[arity]
+        lanes = pa._leaves(b0, arity)[0].numel() // 8
+        cost = kernel_cost("point_add", lanes, group=arity)
+        sites.append(time_site(torch, clock_hz, "K1 point_add", "cross-chunk jadd_f",
+                               f"(8, {lay['w']}, {m_buckets}) buckets, {lanes} lanes",
+                               lambda: pa.point_add("jadd_f", arity, b0, b1), ("point_add_kernel",), 10,
+                               cost["bytes"], cost["int32_ops"], 1, group=f"G{arity}", c=c))
+
+    # 2. each kernel against its plain version
+    t0 = time.perf_counter()
+    for arity in (1, 2):
+        pts = lasts[arity]
+        tag = f"G{arity}, {shape_tag}"
+        want, plain_ms[("chunk apply", arity)] = plain_call(torch, lambda: mk.apply_plain(pts, last, arity, False))
+        comp = held_row(torch, held, "K1 apply", tag, mk.apply(pts, last, arity, False), want, arity, True)
+        want, plain_ms[("chunk seg-scan", arity)] = plain_call(torch, lambda: mk.seg_scan_plain(comp, sdig, arity,
+                                                                                                 False))
+        held_row(torch, held, "K1 seg-scan", tag, mk.seg_scan(comp, sdig, arity, False), want, arity, True)
+        b0, b1 = pair[arity]
+        any_flag = lambda r: (r[0], r[1].any())  # the lane flags, as the engine reads them
+        want, plain_ms[("cross-chunk jadd_f", arity)] = plain_call(torch, lambda: pa.point_add_plain("jadd_f", arity,
+                                                                                                      b0, b1))
+        got = pa.point_add("jadd_f", arity, b0, b1)
+        assert torch.equal(got[1], want[1]), f"[chunked] K1 jadd_f G{arity}: the lane flags differ from the plain's"
+        held_row(torch, held, "K1 jadd_f", f"G{arity}, chunk 0 + chunk 1 buckets", any_flag(got), any_flag(want),
+                 arity, True)
+    want, plain_ms[("chunk reduce-1", 1)] = plain_call(torch, lambda: mk.reduce_plain(acc, d_chunk, 1, False))
+    held_row(torch, held, "K1 reduce", f"G1, the {lay['chunks']} chunks' buckets added, {lay['w']} windows x "
+             f"{m_buckets} buckets", mk.reduce(acc, d_chunk, 1, False), want, 1, True)
+    t_plain = time.perf_counter() - t0
+    for row in sites:
+        row["plain_ms"] = plain_ms.get((row["site"], int(row["group"][1])))
+        plain = f", plain {row['plain_ms']:.1f} ms" if row["plain_ms"] is not None else ""
+        print(f"[chunked] {row['kernel']} {row['site']} {row['group']} ({row['shape']}): device {row['ms']:.5f} "
+              f"ms/launch ({row['timing']}, x{row['launches_per_call']:g} per call), wrapper {row['wrapper_ms']:.4f} "
+              f"ms{plain}, bound {row['bound_ms']:.6f} ms ({row['bound_by']})  ({card})")
+    print(f"[chunked] held against the plain versions, bit for bit with equal flags, on the 2^20 prove's inputs: "
+          + "; ".join(f"{h['kernel']} {h['shape']}" for h in held) + f" (plain {t_plain:.1f} s)  ({card})")
+    return held, sites
+
+
+def run_chunked(torch, clock_hz, card: str) -> dict:
+    """The chunked phase (see the module docstring).  The counts are set to
+    0 before the warmup and read after the 2^21 MSM; the turns with the
+    unchunked engines and the plain comparisons come after."""
+    from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
+    from go_snark_study_tpu_torch.profiling import launch_counts, reset_counts
+
+    secs = {}
+
+    def step(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        return out
+
+    fast = FastGroth16()  # device=None: the card
+    engines = {"unchunked": (fast.msm_g1, fast.msm_g2), "chunked": chunked_engines(fast)}
+    fast.msm_g1, fast.msm_g2 = engines["chunked"]
+    reset_counts()
+    warm = step("warmup", lambda: fast.warmup(families=("big", "small"), domains=tuple(1 << k for k in CHUNK_TIERS),
+                                              g2=True, fixed_base=True))
+    print(f"[chunked] warmup {secs['warmup']:.2f} s: {json.dumps({k: round(v, 4) for k, v in warm.items()})}  "
+          f"({card})")
+    tiers = {}
+    for log_n in CHUNK_TIERS:
+        t = tiers[log_n] = step(f"tier 2^{log_n}", lambda: ladder_tier(torch, fast, log_n, card, phase="chunked"))
+        k1 = {k: t["prove_counts"][k] for k in K1_FORMS}
+        assert t["fallbacks"] or k1 == t["k1_predicted"], \
+            f"[chunked 2^{log_n}] K1 launches per prove {k1}, the plans predict {t['k1_predicted']}"
+        if log_n != CHUNK_TIERS[-1]:
+            del t["setup"], t["r1cs"]
+    t14, t20 = tiers[CHUNK_TIERS[0]], tiers[CHUNK_TIERS[-1]]
+    lw = t14["layouts"]
+    c_small, c_big = fast.msm_g1.window_bits_for(SMALL_CHUNK), fast.msm_g2.window_bits_for(BIG_CHUNK)
+    assert (lw["at"]["mode"], lw["at"]["c"], lw["at"]["span"], lw["at"]["chunks"]) == ("chunk", c_small, SMALL_CHUNK,
+                                                                                         2), lw
+    assert (lw["b2"]["c"], lw["b2"]["span"]) == (c_big, BIG_CHUNK) and c_big != c_small, lw  # G2 on its own plan
+    dpk = t20["setup"].pk._device
+    assert dpk.m_pad == 9 * BIG_CHUNK and all(t.shape[-1] == dpk.m_pad for k, t in device_pk_leaves(dpk).items()
+                                              if k.split(".")[0] in ("at", "b1", "b2")), dpk.m_pad
+    assert t20["prove_counts"]["K1"] == t20["k1_predicted"]["K1"] == 39, t20["prove_counts"]
+    rng = random.Random(LADDER_SEED)
+    msm = {}
+    for log_n, runs in zip(CHUNK_MSM_LOGS, (3, 1)):
+        msm[log_n] = step(f"msm 2^{log_n}", lambda: ladder_msm(torch, fast, log_n, rng, runs, card, phase="chunked"))
+        assert msm[log_n]["layout"]["mode"] == "chunk" and msm[log_n]["layout"]["chunks"] == (1 << log_n) // BIG_CHUNK
+    counts = launch_counts()
+    for k in K1_FORMS + ("K2", "K3"):
+        assert counts[k] > 0, f"{k} not launched on the chunked path"
+    turns = step("turns", lambda: chunked_turns(torch, fast, t20, engines, card))
+    held, sites = step("held against plain", lambda: chunked_vs_plain(torch, clock_hz, fast, t20, card))
+    del t20["setup"], t20["r1cs"]
+    prof_c, prof_u = t20["profile"], turns["unchunked_profile"]
+    apply_ms = {name: dict(per_prove=p["k1_ms"].get("msm_apply"), launches=p["k1_launches"].get("msm_apply"),
+                           per_launch=p["k1_ms"].get("msm_apply", 0) / max(1, p["k1_launches"].get("msm_apply", 0)))
+                for name, p in (("chunked", prof_c), ("unchunked", prof_u))}
+    lo, hi = (f"2^{k}" for k in CHUNK_TIERS)
+    line = {"card": card, "warmup_steps_s": warm,
+            f"prove_{lo}_s": t14["prove_s"], f"prove_cold_{lo}_s": t14["prove_cold_s"],
+            f"prove_{hi}_s": t20["prove_s"], f"prove_cold_{hi}_s": t20["prove_cold_s"],
+            f"prove_{hi}_turns_s": turns["prove_s"],
+            f"busy_share_{hi}": {"chunked": prof_c["busy_s"] / prof_c["wall_s"],
+                                 "unchunked": prof_u["busy_s"] / prof_u["wall_s"]},
+            f"device_launches_{hi}": {"chunked": prof_c["launches"], "unchunked": prof_u["launches"]},
+            f"k1_apply_ms_{hi}": apply_ms, **{f"msm_2^{k}_ms": msm[k]["ms"] for k in CHUNK_MSM_LOGS},
+            f"peak_bytes_{hi}": t20["peak_bytes"], f"pk_bytes_{hi}": t20["pk_bytes"],
+            f"pk_bytes_{lo}": t14["pk_bytes"], "launches": counts, "tiers": tiers, "msm": msm,
+            "held_against_plain": held, "sites": sites, "step_s": secs}
+    print(f"[chunked] K1 apply in a profiled {hi} prove: {json.dumps(apply_ms)}  ({card})")
+    print(f"[chunked] seconds by step: {json.dumps({k: round(v, 1) for k, v in secs.items()})}  ({card})")
+    print(json.dumps({"chunked": line}))
+    return dict(counts=counts, sites=sites)
+
+
 def run_sharded(torch, card: str, paths: dict):
     """The sharded phase (see the module docstring).  Every rank's failure
     raises here, through run_ranks."""
@@ -2024,6 +2275,9 @@ def main(argv=None) -> int:
     if "ladder" in phases:
         paths["ladder"] = run_ladder(torch, clock_hz, card)
         rows["ladder_sites"] = paths["ladder"]["sites"]
+    if "chunked" in phases:
+        paths["chunked"] = run_chunked(torch, clock_hz, card)
+        rows["chunked_sites"] = paths["chunked"]["sites"]
 
     kernels = []
     objs = kernel_objects()
@@ -2050,7 +2304,34 @@ def main(argv=None) -> int:
             "shape": row.get("shape"),
             "path": f"2^{MAIN_LOG if path == 'main' else SMALL_LOG} proof",
         })
-    for key in ("K1_instances", "K1_sites", "K3_sites", "K4_sites", "K4_by_n", "small_vs_stage_path", "ladder_sites"):
+    # the chunked phase's call sites of K1, rows of their own: the apply and
+    # merge-scan forms at the big chunk's shapes, the per-lane jadd_f as the
+    # cross-chunk add (G1; the G2 rows are in the chunked_sites line)
+    chunk_rows = {"chunk apply": "K1 apply", "chunk seg-scan": "K1 seg-scan", "cross-chunk jadd_f": "K1"}
+    for row in rows.get("chunked_sites", []):
+        if row["group"] != "G1" or row["site"] not in chunk_rows:
+            continue
+        obj = objs[chunk_rows[row["site"]]]
+        kernels.append({
+            "name": f"{obj.name} ({row['site']})",
+            "route": "cuda",
+            "source": obj.source_path,
+            "replaces": obj.replaces,
+            "launches": paths["chunked"]["counts"][chunk_rows[row["site"]]],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "device_ms": row["device_ms"],
+            "wrapper_ms": row["wrapper_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "match": row["max_abs_err"] == 0,
+            "shape": row["shape"],
+            "path": "chunked 2^20 proof",
+        })
+    for key in ("K1_instances", "K1_sites", "K3_sites", "K4_sites", "K4_by_n", "small_vs_stage_path", "ladder_sites",
+                "chunked_sites"):
         if key in rows:
             print(json.dumps({key.lower(): rows[key]}))
     print(f"[card] {card}")

@@ -48,7 +48,7 @@ def entry(device=None):
 
     def prove_step(points, limbs, a_c, b_c, c_c):
         aff = g1b.to_affine(points)
-        sums, _bad = msm.window_sums_eager(aff, limbs, c_bits)
+        sums, _bad = msm.window_sums_device(aff, limbs, c_bits)
         ae, be, ce = (eng._transform(x, t_fwd) for x in (a_c, b_c, c_c))
         p = Kr.sub(Kr.mul(ae, be), ce)
         h = Kr.mul_const(eng._transform(p, t_inv), ininv)

@@ -18,7 +18,11 @@ Mirrors ``go_snark_study_tpu/models/groth16_fast.py`` (``FastGroth16``,
   * proofs verify under :func:`.groth16.verify_proof`.
 
 ``warmup`` builds the kernels and the per-domain tables ahead of the first
-prove (the JAX package's compile families have no counterpart here).
+prove, and with chunked engines runs one chunk of each family.  The
+engines are unchunked by default (:mod:`..ops.msm`); assigning chunked
+``msm_g1``/``msm_g2`` (``chunk_lanes=1 << 17``, ``small_chunk_lanes=1 << 14``
+in G1 and ``0`` in G2) gives the JAX package's accelerator configuration,
+and a key set up afterwards is padded to a multiple of its chunk.
 ``prove_sharded`` proves over a mesh of ranks (:mod:`..parallel`).  The JAX
 prover's three-thread pool existed for concurrent XLA compiles; the port
 enqueues the G1, G2 and H sides in that order on one stream.  With
@@ -90,7 +94,9 @@ class FastGroth16:
         self.ntt = NTTEngine(self.Kr)
         bn = self.ctx.bn
         self.msm_g1 = MSMEngine(self.g1b, bn.g1, C.R)
-        self.msm_g2 = MSMEngine(self.g2b, bn.g2, C.R)
+        # no small chunk family for G2, as in the JAX package: the small
+        # tiers' G2 MSM pads into the big chunks (inert while unchunked)
+        self.msm_g2 = MSMEngine(self.g2b, bn.g2, C.R, small_chunk_lanes=0)
         self._fb_g1: Optional[FixedBaseEngine] = None
         self._fb_g2: Optional[FixedBaseEngine] = None
         self._sharded_provers: dict = {}
@@ -122,11 +128,14 @@ class FastGroth16:
         """Do ahead of time what the first setup or prove would otherwise
         pay for, with the JAX package's signature.  On the card it builds
         every kernel (``_build.build_all``; the CPU runs the plain versions
-        and builds nothing).  ``families``: the port has one chunk family
-        (the tiled MSM path), so any non-empty value runs the MSM pieces
-        (plan, apply, merge scan, reduction) once on identity points with
-        zero scalars at the tiled path's smallest lane count, in G1 and,
-        with ``g2``, in G2.  ``domains``: for each evaluation-domain size,
+        and builds nothing).  ``families``: with chunked engines, "big" and
+        "small" each run one chunk of that family (digits and plan, then
+        apply, the cross-chunk ``badd`` and the reduction, each a step) on
+        identity points with zero scalars, in G1 and, with ``g2``, in G2
+        where G2 routes that chunk width to itself; with unchunked engines
+        any non-empty value runs the tiled pieces (plan, apply, merge scan,
+        reduction) once at the tiled path's smallest lane count, in G1
+        and, with ``g2``, in G2.  ``domains``: for each evaluation-domain size,
         build the NTT tables and run the H pipeline once on zeros.
         ``fixed_base``: build the fixed-base tables and run one
         ``batch_mul([1])`` per group, plus one ``to_affine``.  Idempotent:
@@ -138,15 +147,31 @@ class FastGroth16:
 
         def step(label, fn):
             t0 = time.perf_counter()
-            fn()
+            out = fn()
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             steps[label] = time.perf_counter() - t0
+            return out
 
         if dev.type == "cuda":
             step("build", _build.build_all)
-        if families:
-            eng = self.msm_g1
+        eng = self.msm_g1
+        fams = [ch for name, ch in (("big", eng.chunk_lanes), ("small", eng.small_chunk_lanes))
+                if name in families and ch]
+        for lanes in fams:
+            c = eng.window_bits_for(lanes)
+            limbs = torch.zeros((8, lanes), dtype=torch.int32, device=dev)
+            plans = step(f"msm[c{c},{lanes}].plan", lambda: eng._plans(limbs, c, lanes, lanes))
+            groups = ((self.msm_g1, self.g1b),)
+            if g2 and self.msm_g2._chunk_for(lanes) == lanes:  # G2 runs only the families it routes to
+                groups += ((self.msm_g2, self.g2b),)
+            for msm, bg in groups:
+                tag = f"msm[arity{bg._arity},c{c},{lanes}]"
+                aff = bg.zeros(lanes)
+                b, _ = step(f"{tag}.apply", lambda: msm._apply_impl(aff, plans["chunks"][0][0], c))
+                b2, _ = step(f"{tag}.badd", lambda: msm._badd(b, b))
+                step(f"{tag}.reduce", lambda: msm._reduce_buckets(b2, c))
+        if families and not fams:
             lanes = eng.tile_threshold
             c = eng.window_bits_for(lanes)
             limbs = torch.zeros((8, lanes), dtype=torch.int32, device=dev)
@@ -451,11 +476,15 @@ class FastGroth16:
         c_m = self.msm_g1.window_bits_for(dpk.m_pad)
         c_p = self.msm_g1.window_bits_for(dpk.mp_pad)
         c_h = self.msm_g1.window_bits_for(dpk.n_pad)
+        # G2 has no small chunk family: where its window width differs from
+        # G1's, it builds its own plan
+        c_m2 = self.msm_g2.window_bits_for(dpk.m_pad)
         # ONE sort/compaction plan for the witness scalars, shared by the
         # three same-scalar MSMs (at, b1 in G1 AND b2 in G2 — plans carry no
         # group data)
         with span("prove.plans", dv):
             plans_w = self.msm_g1.make_plans(w_limbs, c_m)
+        plans_w2 = plans_w if c_m2 == c_m else None
 
         # G1 side, G2 side, H side, enqueued in order on one stream; the
         # flags stay on the device until all five MSMs are in flight
@@ -463,7 +492,7 @@ class FastGroth16:
             s_at = self.msm_g1.window_sums_eager(dpk.at, w_limbs, c_m, plans_w)
             s_b1 = self.msm_g1.window_sums_eager(dpk.b1, w_limbs, c_m, plans_w)
             s_cd = self.msm_g1.window_sums_eager(dpk.cdelta, wp_limbs, c_p)
-            s_b2 = self.msm_g2.window_sums_eager(dpk.b2, w_limbs, c_m, plans_w)
+            s_b2 = self.msm_g2.window_sums_eager(dpk.b2, w_limbs, c_m2, plans_w2)
         with span("prove.h", dv):
             h_digits = self._get_h_jit(n, dpk.n_pad)(a_d, b_d, c_d, *self._ntt_args(n))
             s_h = self.msm_g1.window_sums_eager(dpk.ptau, h_digits, c_h)
@@ -483,13 +512,13 @@ class FastGroth16:
             s_b1 = chk(self.msm_g1, s_b1, dpk.b1, w_limbs, c_m, plans_w)
             s_cd = chk(self.msm_g1, s_cd, dpk.cdelta, wp_limbs, c_p)
             s_h = chk(self.msm_g1, s_h, dpk.ptau, h_digits, c_h)
-            sums_b2 = chk(self.msm_g2, s_b2, dpk.b2, w_limbs, c_m, plans_w)
+            sums_b2 = chk(self.msm_g2, s_b2, dpk.b2, w_limbs, c_m2, plans_w2)
 
         with span("prove.combine"):
             comb1 = lambda sums, c: combine_window_sums(g1, self.g1b.unpack(sums), c)
             pi_a = comb1(s_at, c_m)
             pi_b_g1 = comb1(s_b1, c_m)
-            pi_b = combine_window_sums(g2, self.g2b.unpack(sums_b2), c_m)
+            pi_b = combine_window_sums(g2, self.g2b.unpack(sums_b2), c_m2)
             pi_c = comb1(s_cd, c_p)
             pi_h = comb1(s_h, c_h)
 

@@ -15,9 +15,10 @@ The formulas take the field adapter ``F`` as an argument, so the same code
 runs over :class:`.limbs.FieldKernels` (products on K2) and over the plain
 :class:`.limbs.U64Field` (inside the plain version of K1).
 
-Whole-point adds (``madd``/``jadd`` and their flagged incomplete forms) on
-a :class:`G1Batch`/:class:`G2Batch` go to K1 (:mod:`.point_add`) for every
-lane count; the JAX package's ``lanes < 256`` escape to XLA is not copied.
+Whole-point adds (``madd``/``jadd`` and their flagged incomplete forms,
+``madd_flagged``/``jadd_flagged``) on a :class:`G1Batch`/:class:`G2Batch`
+go to K1 (:mod:`.point_add`) for every lane count; the JAX package's
+``lanes < 256`` escape to XLA is not copied.
 """
 
 from __future__ import annotations
@@ -340,9 +341,30 @@ class _BatchGroup:
 
     # -- whole-point add: kernel K1 (the MSM's adds are K1's MSM forms,
     # :mod:`.msm_kernels`) ------------------------------------------------
+    def madd(self, p1, p2):
+        """Mixed add p1 (Jacobian) + p2 (affine, z in {0, 1})."""
+        return _pa.point_add("madd", self._arity, p1, p2)
+
     def jadd(self, p1, p2):
         """Full Jacobian add."""
         return _pa.point_add("jadd", self._arity, p1, p2)
+
+    def madd_flagged(self, p1, p2):
+        """Incomplete mixed add: ``(p1 + p2, degenerate_mask)``, the mask
+        of the lane shape."""
+        return _pa.point_add("madd_f", self._arity, p1, p2)
+
+    def jadd_flagged(self, p1, p2):
+        """Incomplete full Jacobian add: ``(p1 + p2, degenerate_mask)``."""
+        return _pa.point_add("jadd_f", self._arity, p1, p2)
+
+    def neg_y_where(self, p, mask):
+        """y -> -y on the lanes where ``mask`` holds (identity lanes stay
+        identity, since -0 = 0): the signed-digit MSM folds a digit's sign
+        into its point."""
+        from .msm_kernels import neg_y_where  # msm_kernels imports this module
+
+        return neg_y_where(p, mask, self._arity)
 
     def double(self, p):
         return jacobian_double(self.F, p)

@@ -7,12 +7,23 @@ accumulation with incomplete adds and a degeneracy flag, a segmented
 Hillis-Steele merge, and the parallel bucket reduction; the W window sums
 are combined on the host in exact arithmetic.
 
+Chunk families (``chunk_lanes``, ``small_chunk_lanes``,
+``small_chunk_max``, with the JAX engine's meaning): an MSM of any size at
+or above ``tile_threshold`` streams through fixed-width chunks, 2^17 lanes
+at c = 13 (the big family) or 2^14 lanes at c = 11 for n <= 2^15 (the
+small family; ``small_chunk_lanes=0`` means none).  Each chunk's window
+groups are applied and merged, the chunks' buckets are summed by K1's
+per-lane flagged add (``badd``, JAX operand order: buckets so far, then
+this chunk's), and the reduction runs once at the end.
+
 What differs from the JAX package:
 
-  * No compile families.  The JAX engine cuts large MSMs into 2^17/2^14
-    lane chunks on the TPU to bound its compile count; the port takes the
-    unchunked path the JAX package takes on the CPU, so both pick the same
-    window width and the same tiling for a given point count.
+  * The default is unchunked on every device, the card included.  The JAX
+    engine turns the families on only on a TPU backend, to bound its XLA
+    compiles (one per shape); the port compiles nothing per shape, so
+    ``chunk_lanes=None`` keeps the unchunked path the JAX package takes on
+    the CPU, with the same window width and tiling for a given point
+    count.  Pass the chunk parameters to get the TPU configuration.
   * ``jnp.argsort`` is stable; ``torch.sort(..., stable=True)`` keeps the
     same order, so buckets accumulate in the same order and the window sums
     are the same Jacobian coordinates.
@@ -54,6 +65,12 @@ NUM_WINDOWS = 32
 
 SCALAR_BITS = 254  # BN128 r bit length
 _TILE_LANES = 2048
+
+# the JAX engine's canonical chunk families: lanes and window width
+_BIG_CHUNK = 1 << 17
+_SMALL_CHUNK = 1 << 14
+_BIG_C = 13
+_SMALL_C = 11
 
 
 def scalars_to_limbs(scalars: Sequence[int], modulus: int, device) -> torch.Tensor:
@@ -153,8 +170,12 @@ class MSMEngine:
     to reach that path at a small size).  ``group_bytes``: memory budget of
     one window group's partial sums, counted in the JAX layout's bytes so
     that both engines group windows alike; it bounds how many windows share
-    a pass.  ``complete``: use the complete group law instead of the
-    incomplete+flag fast path — the fallback target.
+    a pass.  ``chunk_lanes`` / ``small_chunk_lanes`` / ``small_chunk_max``:
+    the chunk families (module docstring); ``None`` (the default) is the
+    unchunked path, ``small_chunk_lanes=0`` no small family, and
+    ``small_chunk_max`` defaults to twice the small chunk.  ``complete``:
+    use the complete group law instead of the incomplete+flag fast path —
+    the fallback target.
     """
 
     def __init__(
@@ -167,6 +188,9 @@ class MSMEngine:
         tile_steps: int | None = None,
         tile_lanes: int = _TILE_LANES,
         group_bytes: int = 3 << 30,
+        chunk_lanes: int | None = None,
+        small_chunk_lanes: int | None = None,
+        small_chunk_max: int | None = None,
         complete: bool = False,
     ):
         self.bg = batch_group
@@ -178,6 +202,9 @@ class MSMEngine:
         self.tile_lanes = tile_lanes
         self.group_bytes = group_bytes
         self.complete = complete
+        self.chunk_lanes = chunk_lanes
+        self.small_chunk_lanes = small_chunk_lanes or None
+        self.small_chunk_max = small_chunk_max or (2 * small_chunk_lanes if small_chunk_lanes else 0)
         self._fallback = None
         self.fallback_hits = 0  # degeneracy-flag re-runs (observability)
 
@@ -186,12 +213,33 @@ class MSMEngine:
         return self.bg.K.device
 
     # ------------------------------------------------------------------
-    # parameter selection (the JAX engine's unchunked path)
+    # parameter selection
     # ------------------------------------------------------------------
+    def _chunk_for(self, n: int) -> Optional[int]:
+        """The chunk width n streams through (None: the unchunked path).
+        A chunked MSM pads to a multiple of its chunk and takes the
+        family's window width."""
+        if self.chunk_lanes is None or n < self.tile_threshold:
+            return None
+        if self.small_chunk_lanes and n <= self.small_chunk_max:
+            return self.small_chunk_lanes
+        return self.chunk_lanes
+
+    def _canonical(self, n: int) -> bool:
+        return self._chunk_for(n) is not None
+
     def window_bits_for(self, n: int) -> int:
-        return self.window_bits or choose_window_bits(n)
+        if self.window_bits:
+            return self.window_bits
+        ch = self._chunk_for(n)
+        if ch is not None:
+            return _SMALL_C if ch == self.small_chunk_lanes else _BIG_C
+        return choose_window_bits(n)
 
     def pad_quantum(self, n: int) -> int:
+        ch = self._chunk_for(n)
+        if ch is not None:
+            return ch
         if n >= self.tile_threshold:
             return self.tile_steps or self.tile_lanes
         return 128
@@ -219,26 +267,40 @@ class MSMEngine:
     def layout(self, n: int, c: int | None = None) -> dict:
         """What :meth:`make_plans` gives an n-lane scalar vector, from the
         engine's rules alone (no tensor): window width ``c``, windows ``w``;
-        on the tiled path the windows per group ``wg``, the zero windows
-        ``wpad`` that fill the last group, the ``groups``, the serial steps
-        ``k`` and lanes per window ``m`` of the accumulation, the
-        compaction width ``p_cap`` and the merge scan's ``seg_steps``.
-        Plans are group-independent, so a G2 engine given these plans runs
-        the same grouping."""
+        on the tiled and chunk paths the lanes a plan covers ``span`` (n,
+        or the chunk), the ``chunks`` (n padded up to the span, over it),
+        the windows per group ``wg``, the zero windows ``wpad`` that fill
+        the last group, the ``groups`` per chunk, the serial steps ``k``
+        and lanes per window ``m`` of the accumulation, the compaction
+        width ``p_cap``, the merge scan's ``seg_steps`` and the cross-chunk
+        bucket adds ``badds`` (chunks - 1).  Plans are group-independent,
+        so a G2 engine given these plans runs the same grouping."""
         c = c or self.window_bits_for(n)
         w = num_windows(c)
         out = dict(n=n, c=c, w=w)
-        if n < self.tile_threshold:
+        ch = self._chunk_for(n)
+        if ch is None and n < self.tile_threshold:
             return dict(out, mode="small", seg_steps=max(1, (n - 1).bit_length()))
-        wg = self._group_size(n, w)
+        span = ch or n
+        chunks = -(-n // span)
+        wg = self._group_size(span, w)
         wpad = (-w) % wg
-        k, m = self._tile_split(n)
-        p_cap = self._p_cap(n, c)
-        return dict(out, mode="tiled", wg=wg, wpad=wpad, groups=(w + wpad) // wg, k=k, m=m,
-                    p_cap=p_cap, seg_steps=max(1, (p_cap - 1).bit_length()))
+        k, m = self._tile_split(span)
+        p_cap = self._p_cap(span, c)
+        return dict(out, mode="chunk" if ch else "tiled", span=span, chunks=chunks, wg=wg, wpad=wpad,
+                    groups=(w + wpad) // wg, k=k, m=m, p_cap=p_cap,
+                    seg_steps=max(1, (p_cap - 1).bit_length()), badds=chunks - 1)
 
     def _false(self):
         return torch.zeros((), dtype=torch.bool, device=self.device)
+
+    def _badd(self, a, b):
+        """a + b laneswise on K1's per-lane add, with any lane's flag (the
+        complete form's flag is constant False): the cross-chunk bucket add."""
+        if self.complete:
+            return self.bg.jadd(a, b), self._false()
+        pt, bad = self.bg.jadd_flagged(a, b)
+        return pt, bad.any()
 
     # ------------------------------------------------------------------
     # device pipeline
@@ -357,32 +419,50 @@ class MSMEngine:
     # ------------------------------------------------------------------
     def make_plans(self, limbs, c: int, n_lanes: Optional[int] = None) -> dict:
         """Build the device-resident sort/compaction plans for a scalar
-        vector (8, N).  The result can be passed to ``window_sums_eager``
-        of ANY engine (plans contain no point or group data), so the
-        prover's three same-witness MSMs — G2 included — pay the sort once."""
+        vector (8, N): one plan per window group (``"tiled"``), or per
+        window group of each chunk (``"chunk"``: ``chunks`` holds a list of
+        group plans per chunk, the limbs zero-padded to a multiple of the
+        ``span``).  The result can be passed to ``window_sums_eager`` of
+        ANY engine (plans contain no point or group data), so the prover's
+        three same-witness MSMs — G2 included — pay the sort once."""
         n = int(limbs.shape[1]) if n_lanes is None else n_lanes
         assert limbs.shape[1] == n, (limbs.shape, n)
-        lay = self.layout(n, c)
-        digits = signed_digits_from_limbs(limbs, c)
-        if lay["mode"] == "small":
+        return self._plans(limbs, c, n, self._chunk_for(n))
+
+    def _plans(self, limbs, c: int, n: int, ch: Optional[int]) -> dict:
+        """:meth:`make_plans` with the chunk width given (None: unchunked)."""
+        if ch is None and n < self.tile_threshold:
+            digits = signed_digits_from_limbs(limbs, c)
             return {"mode": "small", "c": c, "n": n, "plan": self._plan_small_impl(digits)}
-        w, wg, wpad = lay["w"], lay["wg"], lay["wpad"]
-        if wpad:
-            digits = torch.cat([digits, torch.zeros((wpad, n), dtype=digits.dtype, device=digits.device)])
-        plans = [self._plan_impl(digits[g0 : g0 + wg], c) for g0 in range(0, w + wpad, wg)]
-        return {"mode": "tiled", "c": c, "n": n, "wg": wg, "wpad": wpad, "plans": plans}
+        span_ = ch or n
+        w = num_windows(c)
+        wg = self._group_size(span_, w)
+        wpad = (-w) % wg
+        pad = (-n) % span_
+        if pad:
+            limbs = torch.nn.functional.pad(limbs, (0, pad))
+        chunks = []
+        for c0 in range(0, n + pad, span_):
+            digits = signed_digits_from_limbs(limbs[:, c0 : c0 + span_], c)
+            if wpad:
+                digits = torch.cat([digits, digits.new_zeros((wpad, span_))])
+            chunks.append([self._plan_impl(digits[g0 : g0 + wg], c) for g0 in range(0, w + wpad, wg)])
+        if ch is None:
+            return {"mode": "tiled", "c": c, "n": n, "wg": wg, "wpad": wpad, "plans": chunks[0]}
+        return {"mode": "chunk", "c": c, "n": n, "span": span_, "wg": wg, "wpad": wpad, "chunks": chunks}
 
     def window_sums_eager(self, aff_points, limbs, c: int, plans=None):
         """Affine point pytree (N lanes) + (8, N) scalar limbs ->
         (window sums, bad flag), sum leaves (8, W).  ``plans`` (from
         :meth:`make_plans`, possibly of another engine) skips the digit and
-        sort work.
+        sort work.  On a chunk plan the points are zero-padded to the span,
+        each chunk's groups are applied and merged, and the chunks' buckets
+        are added (``badd``) before the one reduction.
 
-        GOSNARK_MSM_PROFILE=1 fences and times each phase of the tiled
-        path (``msm.plan``, ``msm.apply+badd``, ``msm.reduce``) into
+        GOSNARK_MSM_PROFILE=1 fences and times each phase of the tiled and
+        chunk paths (``msm.plan``, ``msm.apply+badd``, ``msm.reduce``) into
         ``profiling.PROFILER``; it changes the asynchronous dispatch, so it
-        is for analysis runs only.  The port has no cross-chunk add: the
-        label keeps the JAX package's name."""
+        is for analysis runs only."""
         n = tree_leaves(aff_points)[0].shape[-1]
         if plans is None:
             with span("msm.plan", self.device, when=n >= self.tile_threshold):
@@ -391,22 +471,47 @@ class MSMEngine:
             assert plans["c"] == c and plans["n"] == n, (plans["c"], plans["n"], c, n)
         if plans["mode"] == "small":
             return self._apply_small_impl(aff_points, plans["plan"], c)
-        parts, bad = [], self._false()
+        chunks = plans["chunks"] if plans["mode"] == "chunk" else [plans["plans"]]
+        span_ = plans.get("span", n)
+        buckets, bad = None, self._false()
         with span("msm.apply+badd", self.device):
-            for plan in plans["plans"]:
-                b_g, f_g = self._apply_impl(aff_points, plan, c)
-                parts.append(b_g)
-                bad = bad | f_g
-            buckets = (
-                parts[0]
-                if len(parts) == 1
-                else tree_map(lambda *xs: torch.cat(xs, dim=1), *parts)
-            )
+            for ci, group_plans in enumerate(chunks):
+                pts = aff_points
+                if len(chunks) > 1 or span_ != n:
+                    pts = tree_map(lambda c_: self._chunk_of(c_, ci * span_, span_), aff_points)
+                parts = []
+                for plan in group_plans:
+                    b_g, f_g = self._apply_impl(pts, plan, c)
+                    parts.append(b_g)
+                    bad = bad | f_g
+                b = parts[0] if len(parts) == 1 else tree_map(lambda *xs: torch.cat(xs, dim=1), *parts)
+                if buckets is None:
+                    buckets = b
+                else:
+                    buckets, f_b = self._badd(buckets, b)
+                    bad = bad | f_b
         with span("msm.reduce", self.device):
             sums, f_r = self._reduce_buckets(buckets, c)
         if plans["wpad"]:
             sums = tree_map(lambda c_: c_[:, : num_windows(c)].contiguous(), sums)
         return sums, bad | f_r
+
+    @staticmethod
+    def _chunk_of(leaf: torch.Tensor, c0: int, span_: int) -> torch.Tensor:
+        """Lanes [c0, c0 + span) of a point leaf, zero-padded past its end
+        (zero lanes are identities), as a contiguous tensor."""
+        part = leaf[..., c0 : c0 + span_]
+        if part.shape[-1] < span_:
+            return torch.nn.functional.pad(part, (0, span_ - part.shape[-1]))
+        return part.contiguous()
+
+    def window_sums_device(self, aff_points, limbs, c: int):
+        """The JAX engine's whole-MSM device entry: affine points + (8, N)
+        scalar limbs -> (window sums, bad).  Unchunked whatever the
+        engine's chunk setting, as the JAX entry is (its traced form runs
+        the per-shape pipeline)."""
+        n = tree_leaves(aff_points)[0].shape[-1]
+        return self.window_sums_eager(aff_points, limbs, c, self._plans(limbs, c, n, None))
 
     # ------------------------------------------------------------------
     def fallback_engine(self) -> "MSMEngine":
@@ -423,6 +528,9 @@ class MSMEngine:
                 tile_steps=self.tile_steps,
                 tile_lanes=self.tile_lanes,
                 group_bytes=self.group_bytes,
+                chunk_lanes=self.chunk_lanes,
+                small_chunk_lanes=self.small_chunk_lanes,
+                small_chunk_max=self.small_chunk_max,
                 complete=True,
             )
         return self._fallback

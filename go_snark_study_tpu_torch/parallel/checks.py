@@ -35,6 +35,9 @@ __all__ = [
     "card_run",
 ]
 
+# shape_check's chunk: 2^14 + 3 signals over 2 ranks pad to 3 chunks a rank
+SHAPE_CHUNK = 1 << 12
+
 
 def _sync(device) -> None:
     if device.type == "cuda":
@@ -137,29 +140,32 @@ def prove(r1cs, pk, rng, layout, device):
 
 
 def shape_check(n_log2: int, layout, device) -> dict:
-    """``dry_shape_check(n_log2, (1, size))`` beside the layout that the
-    real sharded pipeline builds on this rank for that tier's signal count:
-    lanes (``shard_scalars``), window width, windows and compaction width
-    (``make_plans``: digits and sort plan on zero scalars), and the bucket
-    count the apply step is given for the plan's window width."""
+    """The dry shape rule (``sharded_prover._dry_shape``, what
+    ``dry_shape_check`` runs on JAX's chunked engine) on a small chunked
+    engine (``SHAPE_CHUNK`` lanes a chunk, no small family), beside the
+    layout that the real sharded pipeline builds with that engine on this
+    rank for the tier's signal count: lanes (``_local_lanes``, ``shard_scalars``),
+    chunks, window width, windows and compaction width (``make_plans``:
+    digits and sort plans on zero scalars), and the bucket count the apply
+    step is given for the plan's window width."""
     from ..models.groth16_fast import FastGroth16
-    from ..ops.msm import bucket_count
-    from .sharded_prover import ShardedFastProver, dry_shape_check
+    from ..ops.msm import MSMEngine, bucket_count
+    from .sharded_prover import ShardedFastProver, _dry_shape
 
     mesh = mesh_for(layout, device)
     fast = FastGroth16(device=device)
+    eng = fast.msm_g1 = MSMEngine(fast.g1b, fast.ctx.bn.g1, C.R, chunk_lanes=SHAPE_CHUNK, small_chunk_lanes=0)
     prover = ShardedFastProver(fast, mesh)
-    eng = fast.msm_g1
     m = (1 << n_log2) + 3
     local = prover._local_lanes(m, eng)
     limbs = prover.shard_scalars([0] * m, local)
     plans = eng.make_plans(limbs, eng.window_bits_for(local))
-    assert plans["mode"] == "tiled", plans["mode"]
-    real = dict(local_lanes=int(limbs.shape[1]), window_bits=plans["c"],
-                windows=plans["wg"] * len(plans["plans"]) - plans["wpad"],
+    assert plans["mode"] == "chunk", plans["mode"]
+    real = dict(local_lanes=int(limbs.shape[1]), chunks_per_shard=len(plans["chunks"]), window_bits=plans["c"],
+                windows=plans["wg"] * len(plans["chunks"][0]) - plans["wpad"],
                 buckets_per_window=bucket_count(plans["c"])[0],
-                plan_p_cap=int(plans["plans"][0]["comp_dig"].shape[1]))
-    return dict(dry=dry_shape_check(n_log2, (1, mesh.size())), real=real)
+                plan_p_cap=int(plans["chunks"][0][0]["comp_dig"].shape[1]))
+    return dict(dry=_dry_shape(eng, n_log2, (1, mesh.size())), real=real)
 
 
 def _held(rows: list, kernel: str, shape: str, got, want, flagged: bool = True):

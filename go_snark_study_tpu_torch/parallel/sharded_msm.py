@@ -3,8 +3,9 @@
 Counterpart of ``go_snark_study_tpu/parallel/sharded_msm.py``.  Points and
 scalars are split along the batch axis; every rank packs only its slice and
 runs the whole local pipeline on it (``to_affine`` on K2, then
-``window_sums_eager``: plan, K1's apply, merge-scan and reduce forms),
-producing per-rank window sums.  Window sums are points, so the combine is
+``window_sums_device``: plan, K1's apply, merge-scan and reduce forms,
+unchunked whatever the engine's chunk setting, as JAX's traced local
+program is), producing per-rank window sums.  Window sums are points, so the combine is
 an ``all_gather`` followed by a log-depth tree of complete Jacobian adds
 (K1's per-lane form), pairing parts (0, 1), (2, 3), ... as JAX does, so
 the sums are JAX's coordinate for coordinate.  On the 2-D ("host", "data")
@@ -69,7 +70,7 @@ class ShardedMSMEngine(MSMEngine):
         mesh's window sums, leaves (8, W), the same on every rank; whether
         any rank's flag fired)."""
         aff = self.bg.to_affine(points)
-        sums, bad = self.window_sums_eager(aff, limbs, c)
+        sums, bad = self.window_sums_device(aff, limbs, c)
         bad = any_rank(bad, self.mesh.flat_group, self.device)
         for ax in reversed(self.axes):  # innermost axis first, outer last
             sums = self._gather_tree_add(sums, ax)
@@ -89,6 +90,9 @@ class ShardedMSMEngine(MSMEngine):
                 tile_steps=self.tile_steps,
                 tile_lanes=self.tile_lanes,
                 group_bytes=self.group_bytes,
+                chunk_lanes=self.chunk_lanes,
+                small_chunk_lanes=self.small_chunk_lanes,
+                small_chunk_max=self.small_chunk_max,
                 complete=True,
             )
         return self._fallback

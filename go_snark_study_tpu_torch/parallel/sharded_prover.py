@@ -7,11 +7,13 @@ process per rank:
     its own slice of the host-materialised proving key, once, identity
     padded to ``local`` lanes, and keeps it on its device (cached on the
     ``Pk``).
-  * **the rank's pipeline** — the port has no chunk families, so a shard
-    runs the unchunked ``make_plans`` / ``window_sums_eager`` pipeline of
-    :class:`..ops.msm.MSMEngine` (K1's forms), which is what the JAX
-    package runs on the CPU.  The witness plan is built once per proof and
-    shared by the At / BACGamma-G1 / BACGamma-G2 MSMs.
+  * **the rank's pipeline** — a shard runs ``make_plans`` /
+    ``window_sums_eager`` of :class:`..ops.msm.MSMEngine` (K1's forms) over
+    its ``local`` lanes: in the chunks of ``_chunk_for(local)`` when the
+    engine is chunked (the key slice padded to the chunk through
+    ``pad_quantum``), as the JAX package's sharded pieces are, else
+    unchunked.  The witness plan is built once per proof and shared by the
+    At / BACGamma-G1 / BACGamma-G2 MSMs.
   * **combine** — each rank's W window sums are fetched with
     ``all_gather`` and added on the host in rank order d = 0..D-1, so every
     rank assembles the same proof.
@@ -44,37 +46,43 @@ __all__ = ["ShardedDevicePk", "ShardedFastProver", "dry_shape_check"]
 
 
 def dry_shape_check(n_log2: int = 22, mesh_shape=(2, 8)) -> dict:
-    """The port's sharded MSM layout at a tier beyond the hardware at hand
-    (the 2^22 mul-chain instance on a (host, data) = (2, 8) grid by
-    default), computed from the engine's own rules without allocating a
-    tensor or needing a rank: lanes per shard (``pad_quantum``), window
-    width (``window_bits_for``), windows,
-    buckets per window (``bucket_count``) and the plan's compaction width
-    (``_plan_impl``'s ``p_cap``).  The keys are the JAX package's;
-    ``chunks_per_shard`` is 1, as the port has no chunk families."""
-    eng = MSMEngine(None, None, C.R)  # its lane and window rules need no group
+    """The sharded MSM layout at a tier beyond the hardware at hand (the
+    2^22 mul-chain instance on a (host, data) = (2, 8) grid by default),
+    for the JAX package's accelerator configuration (an engine with
+    ``chunk_lanes=1 << 17, small_chunk_lanes=1 << 14``), computed from the
+    engine's rules without allocating a tensor or needing a rank.  The
+    dict is the JAX function's, key for key (:func:`_dry_shape`)."""
+    eng = MSMEngine(None, None, C.R, chunk_lanes=1 << 17, small_chunk_lanes=1 << 14)
+    return _dry_shape(eng, n_log2, mesh_shape)
+
+
+def _dry_shape(eng: MSMEngine, n_log2: int, mesh_shape) -> dict:
+    """JAX's ``dry_shape_check`` rule on a chunked engine (its lane and
+    window rules need no group): lanes per shard (the tier's signals over
+    the devices, rounded up to the chunk), chunks per shard, window width
+    (``window_bits_for``), windows, buckets per window (``bucket_count``)
+    and the compaction width of a chunk's plan (``_plan_impl``'s
+    ``p_cap`` at the chunk width)."""
     d = 1
     for s in mesh_shape:
         d *= int(s)
     m = (1 << n_log2) + 3  # signals of the mul-chain tier instance
+    ch = eng.chunk_lanes
     per = -(-m // d)
-    q = eng.pad_quantum(per)
-    local = -(-per // q) * q
+    local = -(-per // ch) * ch
     c = eng.window_bits_for(local)
     w = num_windows(c)
     m_buckets, _ = bucket_count(c)
-    # the small path: one sort over all windows, no compaction
-    p_cap = eng._p_cap(local, c) if local >= eng.tile_threshold else None
     return {
         "tier": f"2^{n_log2}",
         "mesh": dict(zip(("host", "data"), mesh_shape)),
         "devices": d,
         "local_lanes": local,
-        "chunks_per_shard": 1,
+        "chunks_per_shard": local // ch,
         "window_bits": c,
         "windows": w,
         "buckets_per_window": m_buckets,
-        "plan_p_cap": p_cap,
+        "plan_p_cap": eng._p_cap(ch, c),
         "ok": True,
     }
 

@@ -145,6 +145,73 @@ def test_multi_group_msm_on_card(cuda_device, monkeypatch):
 
 
 @pytest.mark.gpu
+def test_chunked_msm_on_card(cuda_device, monkeypatch):
+    """A chunked MSM (8,192-lane chunks, c = 10) over 20,000 points, so 3
+    chunks with 4,576 identity pad lanes: the kernels' window sums and flag
+    equal the plain path's (the MSM forms and the cross-chunk per-lane add
+    all plain PyTorch on the card), and the combined result the host oracle
+    (Σ k_i·s_i)·G."""
+    from go_snark_study_tpu_torch.bn128 import default_bn128
+    from go_snark_study_tpu_torch.ops import msm
+    from go_snark_study_tpu_torch.ops import msm_kernels as mk
+    from go_snark_study_tpu_torch.ops.curve_ops import G1Batch, tree_leaves
+    from go_snark_study_tpu_torch.ops.fixed_base import FixedBaseEngine
+
+    bn = default_bn128()
+    n = 20000
+    rng = random.Random(19)
+    ks = [rng.randrange(1, C.R) for _ in range(n)]
+    scs = [rng.randrange(C.R) for _ in range(n)]
+    limbs = msm.scalars_to_limbs(scs, C.R, cuda_device)
+    bg = G1Batch(FieldKernels(C.Q, cuda_device))
+    aff = bg.to_affine(FixedBaseEngine(bg, bn.g1, bn.g1.g, C.R).batch_mul_device(msm.scalars_to_windows(ks, C.R,
+                                                                                                       cuda_device)))
+    eng = msm.MSMEngine(bg, bn.g1, C.R, window_bits=10, chunk_lanes=8192, small_chunk_lanes=0)
+    assert eng.layout(n)["chunks"] == 3
+    plans = eng.make_plans(limbs, 10)
+    assert plans["mode"] == "chunk" and len(plans["chunks"]) == 3
+    launches = pa.POINT_ADD.launches
+    got, gbad = eng.window_sums_eager(aff, limbs, 10, plans)
+    assert pa.POINT_ADD.launches - launches == 2  # the two cross-chunk adds
+    with monkeypatch.context() as m:
+        for name in ("apply", "seg_scan", "reduce"):
+            m.setattr(mk, name, getattr(mk, name + "_plain"))
+        m.setattr(pa, "point_add", pa.point_add_plain)
+        want, wbad = eng.window_sums_eager(aff, limbs, 10, plans)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(got), tree_leaves(want)))
+    assert bool(gbad) == bool(wbad) is False
+    total = msm.combine_window_sums(bn.g1, bg.unpack(got), 10)
+    assert bn.g1.equal(total, bn.g1.mul_scalar(bn.g1.g, sum(k * s for k, s in zip(ks, scs)) % C.R))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arity", [1, 2], ids=["G1", "G2"])
+def test_cross_chunk_add_on_card(cuda_device, arity):
+    """K1's per-lane jadd_f on (8, W, M) bucket leaves, the cross-chunk add's
+    shape at c = 13 (20 x 4,160), with identity lanes and planted equal
+    lanes: equal to its plain version bit for bit, flags included."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(23 + arity)
+    w, m = 20, 4160
+
+    def rand():
+        x = torch.randint(0, 2**32, (8, w, m), generator=gen, device=cuda_device, dtype=torch.int64)
+        x[7] %= C.Q >> 224
+        return x.to(torch.int32)
+
+    pt = lambda: tuple(rand() for _ in range(3)) if arity == 1 else tuple((rand(), rand()) for _ in range(3))
+    a, b = pt(), pt()
+    lane = torch.arange(m, device=cuda_device).expand(w, m)
+    same, ident = (lane % 97 == 5)[None], (lane % 89 == 7)[None]
+    b = _unleaves([torch.where(same, x, y) for x, y in zip(_leaves(a, arity), _leaves(b, arity))], arity)
+    b = _unleaves([torch.where(ident, 0, y).contiguous() for y in _leaves(b, arity)], arity)
+    (got, gbad), (want, wbad) = pa.point_add("jadd_f", arity, a, b), pa.point_add_plain("jadd_f", arity, a, b)
+    assert torch.equal(gbad, wbad) and bool(gbad.any()) and gbad.shape == (w, m)
+    assert all(torch.equal(x, y) for x, y in zip(pa._leaves(got, arity), pa._leaves(want, arity)))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("p", [C.Q, C.R], ids=["fq", "fr"])
 def test_card_route_pack_is_python_route_on_card(cuda_device, p):
     """The host bridge's card route (bytes copied and relaid on the card,

@@ -47,7 +47,7 @@ torch.set_num_threads(1)
 N_NTT = 64  # n1 = n2 = 8: divisible by 2 and 4 ranks
 MSM_POINTS, MSM_RANKS = 500, 4  # padded to 512: 128 lanes a rank, c = 8
 HOOK_POINTS = 64
-SHAPE_TIER = 14  # the smallest tier whose 2-rank shards take the tiled MSM path
+SHAPE_TIER = 14  # 8,194 signals a rank: at tile_threshold, so a chunked engine chunks them
 GOLDEN = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "go_snark_study_tpu_torch", "testdata", "groth16_mul_chain30.npz",
@@ -289,26 +289,28 @@ def test_prove_sharded_is_golden_proof(port_setup, two_ranks):
 
 
 def test_dry_shape_check_matches_real_pipeline(two_ranks):
-    """dry_shape_check(14, (1, 2)) is the layout the real sharded pipeline
-    builds on each of 2 ranks for 2^14 + 3 signals (the tiled path)."""
+    """The dry rule that dry_shape_check runs, on a small chunked engine
+    (4,096-lane chunks), is the layout the real sharded pipeline builds
+    with that engine on each of 2 ranks for 2^14 + 3 signals: 3 chunks a
+    shard at c = 13."""
     for r in two_ranks:
         dry, real = r[1]["dry"], r[1]["real"]
-        assert dry["ok"] and dry["devices"] == 2 and dry["chunks_per_shard"] == 1
+        assert dry["ok"] and dry["devices"] == 2 and dry["chunks_per_shard"] == 3
         assert {k: dry[k] for k in real} == real
 
 
 def test_dry_shape_check_2pow22():
-    """The port's layout of the 2^22 tier on a (2, 8) grid, with the JAX
-    package's keys: 264,192 lanes a shard (129 apply steps of 2,048),
-    12-bit windows."""
+    """The 2^22 tier on a (2, 8) grid in the JAX package's accelerator
+    configuration, the JAX function's values: 393,216 lanes a shard in 3
+    chunks of 2^17, 13-bit windows."""
     from go_snark_study_tpu_torch.parallel.sharded_prover import dry_shape_check
 
     info = dry_shape_check(22, (2, 8))
     assert set(info) == {"tier", "mesh", "devices", "local_lanes", "chunks_per_shard", "window_bits",
                          "windows", "buckets_per_window", "plan_p_cap", "ok"}
     assert info["ok"] and info["devices"] == 16 and info["mesh"] == {"host": 2, "data": 8}
-    assert (info["local_lanes"], info["chunks_per_shard"], info["window_bits"], info["windows"]) == (264192, 1, 12, 22)
-    assert (info["buckets_per_window"], info["plan_p_cap"]) == (2112, 4224)
+    assert (info["local_lanes"], info["chunks_per_shard"], info["window_bits"], info["windows"]) == (393216, 3, 13, 20)
+    assert (info["buckets_per_window"], info["plan_p_cap"]) == (4160, 6272)
 
 
 # ---------------------------------------------------------------------------
