@@ -87,10 +87,13 @@ Phases:
            steps, K1's jadd on the tree add's window sums.  Then
            scaling.run's weak-scaling rows for 1 and 2 gloo ranks.  Prints
            one {"sharded": ...} line.
-  ladder   bench.py's program (bench.py:319-609) through the port's names,
-           on one FastGroth16 (device=None): its warmup (the kernels, the
+  ladder   bench.py's program (bench.py:319-609) through the stage functions
+           of the port's bench (go_snark_study_tpu_torch/bench.py), on one
+           FastGroth16 (device=None): its warmup (the kernels, the
            MSM pieces, the H pipeline of each tier's domain, the fixed-base
-           tables); the 2^20 G1 MSM over distinct points k_i·G made on the
+           tables); bench.py's serial baseline (its rng's first 8 draws, so
+           that the MSMs get bench.py's inputs); the 2^20 G1 MSM over
+           distinct points k_i·G made on the
            card (scalars_to_windows, fb_g1.batch_mul_device,
            to_affine_tiled), window_sums_checked three times, the result
            equal to (Σ s_i·k_i)·G; the 2^20 NTT (two forwards, the round
@@ -102,7 +105,10 @@ Phases:
            fail, the key's device bytes, peak memory; K3 per prove must be
            k3_per_prove's count, K2's k2_per_prove's and, at 2^20, K1's
            per prove the count the plans predict, with no flag fired; a
-           profiled 2^20 prove and its prove.* spans); the 2^21 G1 MSM.
+           profiled 2^20 prove and its prove.* spans); the 2^21 G1 MSM
+           (its multipliers drawn before its scalars, as bench.py's are),
+           with the garbage collector's pauses in its timed window and the
+           allocator's device allocations.
            Then, outside the counts, the host bridge on the 2^20 prove's
            inputs: the C++ runtime must be built, and the prover's input
            tensors (the three H inputs, w_limbs, wp_limbs) and the setup's
@@ -116,7 +122,9 @@ Phases:
            witness plan in G1 and in G2 on that plan (the reduce on every
            group's buckets), K1's jadd on a fixed-base window step, K2 on
            the H pipeline's first coset product, K3 on its first three
-           leaves; and to_affine against to_affine_tiled in turns.  Prints
+           leaves; and to_affine against to_affine_tiled in turns.  Last,
+           the 2^21 MSM twice more, once with the 2^20 key dropped and once
+           with its system dropped too, watched as the first.  Prints
            one {"ladder": ...} line with bench.py's metric names.
   chunked  the JAX engine's accelerator configuration on the card: one
            FastGroth16 (device=None) whose msm_g1 has both chunk families
@@ -141,12 +149,24 @@ Phases:
            the per-lane jadd_f on the first two chunks' buckets (the
            cross-chunk add, G1 and G2), the reduce on the sum of every
            chunk's buckets (G1).  One {"chunked": ...} line.
+  bench    python -m go_snark_study_tpu_torch.bench as a user runs it, in
+           its own process, with GOSNARK_BENCH_MSM=65536 GOSNARK_BENCH_NTT=
+           65536 GOSNARK_BENCH_PROVE=14 GOSNARK_BENCH_MSM21=0 (BENCH_ENV): it
+           must exit 0 and print bench.py's line last, headline
+           msm_g1_points_per_sec_2^16, correct, no error_* key, the three
+           shares of sub.mfu at most 1, this card's name and power limit,
+           and K1's forms, K2 and K3 launched in its run (it sets its counts
+           to 0 at its start and reports them at its end).  Prints the line
+           as {"bench": ...}.
 
 The kernel launch counts are set to 0 just before a path is driven and read
 just after (the parity flows: before and after each setup and proof; the
 sharded path: in each rank, before its setup and after its checks; the
-ladder and chunked phases: before the warmup and after the 2^21 MSM).  Each
-of the dsl, parity and cli phases prints one JSON line of its numbers.  The second-to-last line is one JSON object with a row per
+ladder and chunked phases: before the warmup and after the 2^21 MSM; the
+bench phase: in the bench's own process, at its start and end).  Each of
+the dsl, parity and cli phases prints one JSON line of its numbers.  The
+seconds of each phase and of the whole script are printed before the card's
+name.  The second-to-last line is one JSON object with a row per
 kernel; the last line is {"ok": true, "device": {...}}.  Any failure exits
 non-zero before that line.  Without a CUDA device the script exits 1.
 """
@@ -155,6 +175,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import random
@@ -162,7 +183,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "kernels", "main", "small", "dsl", "parity", "cli", "sharded", "ladder", "chunked")
+PHASES = ("build", "kernels", "main", "small", "dsl", "parity", "cli", "sharded", "ladder", "chunked", "bench")
 DEVICE = "cuda"
 MAIN_LOG, SMALL_LOG = 16, 12  # constraints of the main path and of the radix-2 path
 DSL_LOG = 16  # the dsl phase: a flat-code chain of 2^16 - 1 links, 2^16 constraints
@@ -199,11 +220,15 @@ LADDER_MSM_LOGS = (20, 21)  # the G1 MSMs of bench.py:352-417 and :583-609
 LADDER_NTT_LOG = 20  # bench.py:419-444
 LADDER_SEED = 0xBEEF  # bench.py's rng
 NTT_SAMPLES = 4  # evaluations checked against a host Horner evaluation
-MODMUL_LANES, MODMUL_CHAIN, MODMUL_REPS = 1 << 20, 8, 4  # bench.py:446-476
+MODMUL_LANES = 1 << 20  # bench.py:446-476
 # the chunked phase: the JAX engine's chunk families (ops/msm.py), its tiers and MSMs
 BIG_CHUNK, SMALL_CHUNK = 1 << 17, 1 << 14
 CHUNK_TIERS = (14, 20)  # the small family's witness (2 chunks), the big family's (9 chunks)
 CHUNK_MSM_LOGS = (20, 21)  # 8 and 16 big chunks
+# the bench phase: python -m go_snark_study_tpu_torch.bench at these sizes (bench.py's variables)
+BENCH_ENV = {"GOSNARK_BENCH_MSM": "65536", "GOSNARK_BENCH_NTT": "65536", "GOSNARK_BENCH_PROVE": "14",
+             "GOSNARK_BENCH_MSM21": "0"}
+BENCH_TIMEOUT_S = 600
 
 
 def card_line() -> str:
@@ -1132,16 +1157,12 @@ def device_pk_leaves(dpk) -> dict:
 def profiled(fn):
     """Run ``fn`` with GOSNARK_MSM_PROFILE=1 and a fresh profiler: (the
     profiler's report for the H100, {label: {"s", "calls"}})."""
-    from go_snark_study_tpu_torch.profiling import PROFILER
+    from go_snark_study_tpu_torch.profiling import profiling
 
-    os.environ["GOSNARK_MSM_PROFILE"] = "1"
-    PROFILER.reset()
-    try:
+    with profiling() as prof:
         fn()
-    finally:
-        del os.environ["GOSNARK_MSM_PROFILE"]
-    rows = {k: dict(s=PROFILER.times[k], calls=PROFILER.calls[k]) for k in sorted(PROFILER.times)}
-    return PROFILER.report(chip="h100"), rows
+    rows = {k: dict(s=prof.times[k], calls=prof.calls[k]) for k in sorted(prof.times)}
+    return prof.report(chip="h100"), rows
 
 
 def say_profile(what: str, report: str, card: str):
@@ -1353,66 +1374,110 @@ def group_layout(lay: dict) -> str:
 
 
 def ladder_msm(torch, fast, log_n: int, rng, runs: int, card: str, phase: str = "ladder") -> dict:
-    """bench.py's G1 MSM through the port: 2^log_n distinct points k_i·G
-    (random k_i) made on the card by the fixed-base engine and normalised
-    by to_affine_tiled, random scalars, then window_sums_checked and the
-    host combination, timed end to end as bench.py times it; the result
-    must equal (Σ s_i·k_i)·G."""
-    from go_snark_study_tpu_torch.bn128 import constants as C
-    from go_snark_study_tpu_torch.ops.msm import combine_window_sums, scalars_to_limbs, scalars_to_windows
+    """bench.py's G1 MSM through the port's bench (go_snark_study_tpu_torch.bench):
+    at 2^LADDER_MSM_LOGS[0] its msm_stage (the scalars drawn from ``rng``
+    first, then the multipliers; ``runs`` runs, the second timed), above it
+    its msm21_stage (the multipliers first, one run).  The 2^log_n points
+    k_i·G are made on the card by the fixed-base engine and normalised by
+    to_affine_tiled; each run is window_sums_checked and the host
+    combination, timed end to end as bench.py times it, and must equal
+    (Σ s_i·k_i)·G."""
+    from go_snark_study_tpu_torch import bench
 
-    bn, n = fast.ctx.bn, 1 << log_n
-    t0 = time.perf_counter()
-    scalars = [rng.randrange(C.R) for _ in range(n)]
-    ks = [rng.randrange(1, C.R) for _ in range(n)]
-    t_rand = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    aff = fast.g1b.to_affine_tiled(fast.fb_g1.batch_mul_device(scalars_to_windows(ks, C.R, fast.device)))
-    limbs = scalars_to_limbs(scalars, C.R, fast.device)
-    torch.cuda.synchronize()
-    t_points, peak_points = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
-    eng = fast.msm_g1
-    c = eng.window_bits_for(n)
-    lay = eng.layout(n, c)
-    hits0 = eng.fallback_hits
-    secs = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        sums = eng.window_sums_checked(aff, limbs, c)
-        total = combine_window_sums(bn.g1, fast.g1b.unpack(sums), c)
-        secs.append(time.perf_counter() - t0)
-    expect = sum(s * k for s, k in zip(scalars, ks)) % C.R
-    assert bn.g1.equal(total, bn.g1.mul_scalar(bn.g1.g, expect)), f"[{phase}] G1 MSM 2^{log_n} != (sum s_i k_i) G"
-    hits = eng.fallback_hits - hits0
-    ms = secs[min(1, runs - 1)] * 1e3  # bench.py times the second run
-    print(f"[{phase}] G1 MSM 2^{log_n}: {ms:.1f} ms ({n / ms * 1e3:.0f} points/s; runs {secs} s), "
+    n = 1 << log_n
+    if log_n == LADDER_MSM_LOGS[0]:
+        out = bench.msm_stage(fast, n, rng, "distinct", runs=runs)
+    else:
+        out = bench.msm21_stage(fast, rng, n)
+    assert out["correct"], f"[{phase}] G1 MSM 2^{log_n} != (sum s_i k_i) G"
+    lay, ms, hits = out["layout"], out["ms"], out["fallback_hits"]
+    print(f"[{phase}] G1 MSM 2^{log_n}: {ms:.1f} ms ({n / ms * 1e3:.0f} points/s; runs {out['runs_s']} s), "
           f"equals the host oracle; {group_layout(lay)}; degeneracy re-runs {hits}; random scalars and "
-          f"multipliers {t_rand:.2f} s, points k_i G on the card (fixed-base, to_affine_tiled) and scalar limbs "
-          f"{t_points:.2f} s, peak device memory of that step {peak_points / 2**20:.1f} MiB  ({card})")
-    return dict(n=n, c=c, layout=lay, ms=ms, runs_s=secs, points_per_sec=n / ms * 1e3,
-                fallback_hits=hits, random_s=t_rand, points_s=t_points, points_peak_bytes=peak_points)
+          f"multipliers {out['random_s']:.2f} s, points k_i G on the card (fixed-base, to_affine_tiled) and scalar "
+          f"limbs {out['points_s']:.2f} s, peak device memory of that step "
+          f"{out['points_peak_bytes'] / 2**20:.1f} MiB  ({card})")
+    return dict(n=n, c=out["c"], layout=lay, ms=ms, runs_s=out["runs_s"], points_per_sec=n / ms * 1e3,
+                fallback_hits=hits, random_s=out["random_s"], points_s=out["points_s"],
+                points_peak_bytes=out["points_peak_bytes"])
+
+
+def watched_msm(torch, fast, fn):
+    """Run ``fn`` (an MSM stage on ``fast``'s G1 engine) and return (its
+    result, what the process did meanwhile): the garbage collector's
+    pauses by generation from the first window_sums_checked call to the
+    stage's end (the timed window), the wall of the window sums (fenced;
+    the rest of the window is the host combination), the caching
+    allocator's device allocations and retries over the stage, and the
+    bytes allocated and reserved after it."""
+    eng, gen_pause, mark = fast.msm_g1, [0.0, 0.0, 0.0], {}
+    checked = eng.window_sums_checked
+
+    def first_call(*a, **k):
+        t0 = time.perf_counter()
+        mark.setdefault("t0", t0)
+        sums = checked(*a, **k)
+        torch.cuda.synchronize()
+        mark["sums_ms"] = mark.get("sums_ms", 0.0) + (time.perf_counter() - t0) * 1e3
+        return sums
+
+    def on_gc(phase, info):
+        if phase == "start":
+            mark["gc"] = time.perf_counter()
+        elif "t0" in mark and mark["gc"] >= mark["t0"]:
+            gen_pause[info["generation"]] += time.perf_counter() - mark["gc"]
+
+    mem0, col0 = torch.cuda.memory_stats(), [g["collections"] for g in gc.get_stats()]
+    eng.window_sums_checked = first_call
+    gc.callbacks.append(on_gc)
+    try:
+        out = fn()
+    finally:
+        gc.callbacks.remove(on_gc)
+        del eng.window_sums_checked
+    mem1 = torch.cuda.memory_stats()
+    return out, dict(window_sums_ms=mark.get("sums_ms"), gc_pause_ms_by_gen=[t * 1e3 for t in gen_pause],
+                     gc_collections_by_gen=[g["collections"] - c for g, c in zip(gc.get_stats(), col0)],
+                     device_allocs=mem1.get("num_device_alloc", 0) - mem0.get("num_device_alloc", 0),
+                     alloc_retries=mem1.get("num_alloc_retries", 0) - mem0.get("num_alloc_retries", 0),
+                     allocated_mib=torch.cuda.memory_allocated() / 2**20,
+                     reserved_mib=torch.cuda.memory_reserved() / 2**20, gc_tracked_objects=len(gc.get_objects()))
+
+
+def msm21_by_residency(torch, fast, rng, first: dict, top: dict, card: str) -> list:
+    """Where the 2^21 MSM's time goes when the 2^20 tier stays resident:
+    ``first`` is the ladder's own 2^21 run (key and system resident); then
+    one run after the key is dropped (its device memory back in the
+    allocator's cache, the system's Python objects kept) and one after the
+    system is dropped too.  Each with ``watched_msm``'s readings."""
+    rows = [dict(state="2^20 key and system resident", ms=first["ms"], **first["watch"])]
+    for state, drop in (("key dropped, system resident", "setup"), ("key and system dropped", "r1cs")):
+        del top[drop]
+        gc.collect()
+        out, watch = watched_msm(torch, fast, lambda: ladder_msm(torch, fast, LADDER_MSM_LOGS[1], rng, 1, card))
+        rows.append(dict(state=state, ms=out["ms"], **watch))
+    for r in rows:
+        print(f"[ladder] 2^21 MSM with the {r['state']}: {r['ms']:.1f} ms, window sums {r['window_sums_ms']:.1f} "
+              f"ms; GC pauses in the timed window by generation {[round(t, 1) for t in r['gc_pause_ms_by_gen']]} "
+              f"ms, collections over the stage "
+              f"{r['gc_collections_by_gen']}, {r['gc_tracked_objects']} tracked objects; device allocations "
+              f"{r['device_allocs']}, retries {r['alloc_retries']}; allocated {r['allocated_mib']:.0f} MiB, "
+              f"reserved {r['reserved_mib']:.0f} MiB  ({card})")
+    return rows
 
 
 def ladder_ntt(torch, fast, log_n: int, card: str) -> dict:
-    """bench.py's NTT (two forward transforms, the second timed), then
-    inverse(forward(x)) == x bit for bit, a fresh engine's first forward
-    (its tables built) and NTT_SAMPLES evaluations against a host Horner
-    evaluation of the coefficients at w^i."""
+    """bench.py's NTT through the port's bench (ntt_stage: two forward
+    transforms of canonical values from numpy's RandomState(1), the second
+    timed), then inverse(forward(x)) == x bit for bit, a fresh engine's
+    first forward (its tables built) and NTT_SAMPLES evaluations against a
+    host Horner evaluation of the coefficients at w^i."""
+    from go_snark_study_tpu_torch import bench
     from go_snark_study_tpu_torch.bn128 import constants as C
     from go_snark_study_tpu_torch.ops.ntt import NTTEngine
 
     n, ntt, K = 1 << log_n, fast.ntt, fast.Kr
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(1)
-    x = rand_fq(torch, gen, n, C.R >> 224)
-    secs = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        y = ntt.forward(x)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
+    out = bench.ntt_stage(fast, n)
+    x, y = out["x"], out["y"]
     assert torch.equal(ntt.inverse(y), x), f"[ladder] NTT 2^{log_n}: inverse(forward(x)) != x"
     fresh = NTTEngine(K)  # its first forward builds the step and twiddle tables on the host
     t0 = time.perf_counter()
@@ -1427,100 +1492,51 @@ def ladder_ntt(torch, fast, log_n: int, card: str) -> dict:
         for c_ in reversed(coeffs):
             acc = (acc * wi + c_) % C.R
         assert acc == g, f"[ladder] NTT 2^{log_n}: evaluation {i} != the host's"
-    print(f"[ladder] NTT 2^{log_n} forward: {secs[-1] * 1e3:.2f} ms (first {secs[0] * 1e3:.2f} ms); inverse(forward) "
+    print(f"[ladder] NTT 2^{log_n} forward: {out['ms']:.2f} ms (first {out['first_ms']:.2f} ms); inverse(forward) "
           f"bit for bit; a fresh engine's first forward, its tables built, {t_fresh:.3f} s; evaluations {idx} "
           f"equal the host's Horner values  ({card})")
-    return dict(ms=secs[-1] * 1e3, first_ms=secs[0] * 1e3, fresh_engine_first_s=t_fresh, samples=idx)
+    return dict(ms=out["ms"], first_ms=out["first_ms"], fresh_engine_first_s=t_fresh, samples=idx)
 
 
 def ladder_modmul(torch, card: str) -> dict:
-    """bench.py's Montgomery-product throughput: a chain of MODMUL_CHAIN
-    products at 2^20 lanes over fr_kernels(), repeated MODMUL_REPS times."""
-    from go_snark_study_tpu_torch.bn128 import constants as C
+    """bench.py's Montgomery-product throughput through the port's bench
+    (modmul_stage, at its chain and repetitions): a chain of products at
+    2^20 lanes over fr_kernels(), repeated."""
+    from go_snark_study_tpu_torch import bench
     from go_snark_study_tpu_torch.ops.fields import fr_kernels
 
-    Kr = fr_kernels()  # device=None: the card
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(0)
-    a = rand_fq(torch, gen, MODMUL_LANES, C.R >> 224)
-
-    def chain(x, y):
-        for _ in range(MODMUL_CHAIN):
-            x = Kr.mul(x, y)
-        return x
-
-    r = chain(a, a)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(MODMUL_REPS):
-        r = chain(r, a)
-    torch.cuda.synchronize()
-    per_s = MODMUL_CHAIN * MODMUL_REPS * MODMUL_LANES / (time.perf_counter() - t0)
-    print(f"[ladder] Montgomery products at 2^{MODMUL_LANES.bit_length() - 1} lanes, chains of {MODMUL_CHAIN} x {MODMUL_REPS}: "
-          f"{per_s / 1e6:.1f} M/s  ({card})")
-    return dict(modmul_mps=per_s / 1e6)
+    out = bench.modmul_stage(fr_kernels(), MODMUL_LANES)  # device=None: the card
+    print(f"[ladder] Montgomery products at 2^{MODMUL_LANES.bit_length() - 1} lanes: {out['modmul_mps']:.1f} M/s  "
+          f"({card})")
+    return dict(modmul_mps=out["modmul_mps"])
 
 
 def ladder_tier(torch, fast, log_n: int, card: str, phase: str = "ladder") -> dict:
-    """One rung of bench.py's ladder (bench.py:513-576) on the phase's one
-    engine: mul_chain_r1cs(2^log_n, seed=1), setup without host lists (its
-    setup.* spans printed), a cold and a warm prove, verification and a
-    wrong public input; the warm prove's launches against the plans'
-    prediction, peak device memory and the key's device bytes.  At the top
-    tier, one prove more under torch.profiler and one with the prove.*
-    spans (GOSNARK_MSM_PROFILE=1)."""
+    """One rung of bench.py's ladder through the port's bench (tier_stage,
+    bench.py:513-576) on the phase's one engine: mul_chain_r1cs(2^log_n,
+    seed=1), setup without host lists (its setup.* spans printed), a cold
+    and a warm prove, verification; then a wrong public input, the warm
+    prove's launches against the plans' prediction, peak device memory and
+    the key's device bytes.  At the top tier, one prove more under
+    torch.profiler and one with the prove.* spans (GOSNARK_MSM_PROFILE=1)."""
+    from go_snark_study_tpu_torch import bench
     from go_snark_study_tpu_torch.models.groth16 import verify_proof
-    from go_snark_study_tpu_torch.profiling import launch_counts
-    from go_snark_study_tpu_torch.synthetic import mul_chain_r1cs
 
     tag = f"{phase} 2^{log_n}"
-    t0 = time.perf_counter()
-    r1cs = mul_chain_r1cs(1 << log_n, seed=1)
-    t_r1cs = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    box = {}
-
-    def do_setup():
-        t0 = time.perf_counter()
-        box["setup"] = fast.setup(r1cs, rng=random.Random(1), materialize_host=False)
-        torch.cuda.synchronize()
-        box["s"] = time.perf_counter() - t0
-
-    _, spans = profiled(do_setup)
-    setup, t_setup = box["setup"], box["s"]
-    pk = setup.pk
-    dpk = pk._device
-    pk_bytes = sum(t.numel() * t.element_size() for t in device_pk_leaves(dpk).values())
-    hits0 = fast.msm_g1.fallback_hits + fast.msm_g2.fallback_hits
-    t0 = time.perf_counter()
-    fast.prove(r1cs, pk, rng=random.Random(2))
-    torch.cuda.synchronize()
-    t_cold = time.perf_counter() - t0
-    hits1 = fast.msm_g1.fallback_hits + fast.msm_g2.fallback_hits
-    before = launch_counts()
-    t0 = time.perf_counter()
-    proof = fast.prove(r1cs, pk, rng=random.Random(3))
-    torch.cuda.synchronize()
-    t_warm = time.perf_counter() - t0
-    after = launch_counts()
-    hits = fast.msm_g1.fallback_hits + fast.msm_g2.fallback_hits
-    peak = torch.cuda.max_memory_allocated()
-    per = {k: after[k] - before[k] for k in after}
+    t = bench.tier_stage(fast, log_n, setup_spans=True)
+    r1cs, setup, proof, per = t["r1cs"], t["setup"], t["proof"], t["prove_counts"]
+    pk, dpk = setup.pk, setup.pk._device
     publics = r1cs.witness[1 : r1cs.n_public + 1]
-    t0 = time.perf_counter()
-    ok = verify_proof(setup.vk, proof, publics)
-    t_verify = time.perf_counter() - t0
-    assert ok, f"[{tag}] the proof does not verify"
+    assert t["correct"], f"[{tag}] the proof does not verify"
     assert not verify_proof(setup.vk, proof, [publics[0] + 1]), f"[{tag}] a wrong public input verifies"
     k1_pred, lays = k1_per_prove(fast, dpk)
     k1 = {k: per[k] for k in K1_FORMS}
     k3_pred, k2_pred = k3_per_prove(dpk.n), k2_per_prove(dpk.n)
     assert per["K3"] == k3_pred, f"[{tag}] K3 launched {per['K3']} times in a prove, predicted {k3_pred}"
-    assert hits != hits1 or per["K2"] == k2_pred, \
+    assert t["warm_fallbacks"] or per["K2"] == k2_pred, \
         f"[{tag}] K2 launched {per['K2']} times in a prove, predicted {k2_pred}"
     if log_n == LADDER_TIERS[-1]:  # 2^20
-        assert hits == hits1, f"[{tag}] a degeneracy flag fired in the warm prove"
+        assert not t["warm_fallbacks"], f"[{tag}] a degeneracy flag fired in the warm prove"
         assert k1 == k1_pred, f"[{tag}] K1 launches per prove {k1}, the plans predict {k1_pred}"
     prof = host = None
     if log_n == LADDER_TIERS[-1]:  # where the time of a 2^20 prove goes: device (profiler), host phases (spans)
@@ -1528,20 +1544,21 @@ def ladder_tier(torch, fast, log_n: int, card: str, phase: str = "ladder") -> di
         report, host = profiled(lambda: fast.prove(r1cs, pk, rng=random.Random(5)))
         for ln in report.splitlines():
             print(f"[{tag}]   {ln}")
-    setup_rows = {k: round(v["s"], 3) for k, v in spans.items() if k.startswith("setup.")}
-    print(f"[{tag}] {r1cs.n_constraints} constraints (mul_chain_r1cs {t_r1cs:.2f} s): setup {t_setup:.3f} s "
-          f"({json.dumps(setup_rows)}), prove cold {t_cold:.3f} s, warm {t_warm:.3f} s, verify {t_verify:.3f} s; "
-          f"verifies, a wrong public fails; proving key {pk_bytes / 1e6:.1f} MB on the card, peak device memory "
-          f"{peak / 2**20:.1f} MiB; degeneracy re-runs {hits - hits0} (warm prove {hits - hits1})  ({card})")
+    setup_rows = {k: round(v, 3) for k, v in t["setup_spans_s"].items()}
+    print(f"[{tag}] {r1cs.n_constraints} constraints (mul_chain_r1cs {t['r1cs_s']:.2f} s): setup {t['setup_s']:.3f} s "
+          f"({json.dumps(setup_rows)}), prove cold {t['prove_cold_s']:.3f} s, warm {t['prove_s']:.3f} s, verify "
+          f"{t['verify_s']:.3f} s; verifies, a wrong public fails; proving key {t['pk_bytes'] / 1e6:.1f} MB on the "
+          f"card, peak device memory {t['peak_bytes'] / 2**20:.1f} MiB; degeneracy re-runs {t['fallbacks']} (warm "
+          f"prove {t['warm_fallbacks']})  ({card})")
     print(f"[{tag}] launches in the warm prove: K1 by form {json.dumps(k1)} (total {sum(k1.values())}; the plans "
           f"predict {json.dumps(k1_pred)}, total {sum(k1_pred.values())}), K2 {per['K2']} (predicted {k2_pred}), "
           f"K3 {per['K3']} (predicted {k3_pred}), K4 {per['K4']}  ({card})")
     for name, lay in lays.items():
         print(f"[{tag}]   MSM {name}: {lay['n']} lanes, {group_layout(lay)}")
-    return dict(constraints=r1cs.n_constraints, r1cs_s=t_r1cs, setup_s=t_setup, setup_spans_s=setup_rows,
-                prove_cold_s=t_cold, prove_s=t_warm, verify_s=t_verify, pk_bytes=pk_bytes, peak_bytes=peak,
-                profile=prof, prove_phases=host,
-                fallbacks=hits - hits0, prove_counts=per, k1_predicted=k1_pred, k2_predicted=k2_pred,
+    return dict(constraints=r1cs.n_constraints, r1cs_s=t["r1cs_s"], setup_s=t["setup_s"], setup_spans_s=setup_rows,
+                prove_cold_s=t["prove_cold_s"], prove_s=t["prove_s"], verify_s=t["verify_s"], pk_bytes=t["pk_bytes"],
+                peak_bytes=t["peak_bytes"], profile=prof, prove_phases=host,
+                fallbacks=t["fallbacks"], prove_counts=per, k1_predicted=k1_pred, k2_predicted=k2_pred,
                 k3_predicted=k3_pred,
                 layouts={k: {f: v for f, v in lay.items()} for k, lay in lays.items()}, r1cs=r1cs, setup=setup)
 
@@ -1850,6 +1867,7 @@ def run_ladder(torch, clock_hz, card: str) -> dict:
     """The ladder phase (see the module docstring).  The counts are set to 0
     before the warmup and read after the 2^21 MSM; the plain comparisons
     come after."""
+    from go_snark_study_tpu_torch import bench
     from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
     from go_snark_study_tpu_torch.profiling import launch_counts, reset_counts
 
@@ -1868,6 +1886,7 @@ def run_ladder(torch, clock_hz, card: str) -> dict:
                                               g2=True, fixed_base=True))
     print(f"[ladder] warmup {secs['warmup']:.2f} s: {json.dumps({k: round(v, 3) for k, v in warm.items()})}  ({card})")
     rng = random.Random(LADDER_SEED)
+    serial = bench.serial_baseline(rng)  # bench.py's first 8 draws: the MSMs get bench.py's inputs
     msm = {LADDER_MSM_LOGS[0]: step(f"msm 2^{LADDER_MSM_LOGS[0]}",
                                     lambda: ladder_msm(torch, fast, LADDER_MSM_LOGS[0], rng, 3, card))}
     ntt = step(f"ntt 2^{LADDER_NTT_LOG}", lambda: ladder_ntt(torch, fast, LADDER_NTT_LOG, card))
@@ -1877,8 +1896,10 @@ def run_ladder(torch, clock_hz, card: str) -> dict:
         tiers[log_n] = step(f"tier 2^{log_n}", lambda: ladder_tier(torch, fast, log_n, card))
         if log_n != LADDER_TIERS[-1]:  # keep the last tier's key for the plain comparisons
             del tiers[log_n]["setup"], tiers[log_n]["r1cs"]
-    msm[LADDER_MSM_LOGS[1]] = step(f"msm 2^{LADDER_MSM_LOGS[1]}",
-                                   lambda: ladder_msm(torch, fast, LADDER_MSM_LOGS[1], rng, 1, card))
+    msm[LADDER_MSM_LOGS[1]], watch = step(
+        f"msm 2^{LADDER_MSM_LOGS[1]}",
+        lambda: watched_msm(torch, fast, lambda: ladder_msm(torch, fast, LADDER_MSM_LOGS[1], rng, 1, card)))
+    msm[LADDER_MSM_LOGS[1]]["watch"] = watch
     counts = launch_counts()
     for k in K1_FORMS + ("K2", "K3"):
         assert counts[k] > 0, f"{k} not launched on the ladder path"
@@ -1887,11 +1908,12 @@ def run_ladder(torch, clock_hz, card: str) -> dict:
     inputs = bridge.pop("inputs")
     held, sites, affine = step("held against plain",
                                lambda: ladder_vs_plain(torch, clock_hz, fast, top, inputs, card))
-    del top["setup"], top["r1cs"], inputs
+    del inputs
     m20, m21 = msm[LADDER_MSM_LOGS[0]], msm[LADDER_MSM_LOGS[1]]
+    by_residency = step("msm 2^21 by residency", lambda: msm21_by_residency(torch, fast, rng, m21, top, card))
     line = {"card": card, f"msm_g1_points_per_sec_2^{LADDER_MSM_LOGS[0]}": m20["points_per_sec"],
             f"msm_2^{LADDER_MSM_LOGS[0]}_ms": m20["ms"], f"ntt_2^{LADDER_NTT_LOG}_ms": ntt["ms"],
-            "modmul_mps": modmul["modmul_mps"]}
+            "modmul_mps": modmul["modmul_mps"], "serial_pts_per_s": serial["serial_pts_per_s"]}
     for log_n, t in tiers.items():
         line[f"groth16_setup_2^{log_n}_s"] = t["setup_s"]
         line[f"groth16_prove_2^{log_n}_s"] = t["prove_s"]
@@ -1903,6 +1925,7 @@ def run_ladder(torch, clock_hz, card: str) -> dict:
                  "prove_fallback_hits": sum(t["fallbacks"] for t in tiers.values()),
                  **bridge, f"prove_phases_2^{LADDER_TIERS[-1]}": top["prove_phases"],
                  f"k2_per_prove_2^{LADDER_TIERS[-1]}": top["prove_counts"]["K2"],
+                 f"msm_2^{LADDER_MSM_LOGS[1]}_by_residency": by_residency,
                  "warmup_steps_s": warm, "step_s": secs, "msm": msm, "ntt": ntt, "tiers": tiers,
                  "launches": counts, "held_against_plain": held, "sites": sites, "affine": affine})
     print(f"[ladder] seconds by step: {json.dumps({k: round(v, 1) for k, v in secs.items()})}  ({card})")
@@ -2190,6 +2213,45 @@ def run_sharded(torch, card: str, paths: dict):
     return dict(counts=counts)
 
 
+def run_bench(card: str) -> dict:
+    """The bench phase: ``python -m go_snark_study_tpu_torch.bench`` as a
+    user runs it, in a process of its own, at BENCH_ENV's sizes.  It must
+    exit 0 and print, last, bench.py's line: the headline
+    msm_g1_points_per_sec_2^16, ``correct`` not false, no error_* key, the
+    three shares at most 1, this card's name and power limit, and K1's
+    forms, K2 and K3 launched in its run (the counts it resets at its start
+    and reads at its end, in ``sub.launches``).  Prints the line as
+    {"bench": ...}."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **BENCH_ENV)
+    env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "go_snark_study_tpu_torch.bench"], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for ln in proc.stderr.splitlines():
+        print(f"[bench]   {ln}")
+    assert proc.returncode == 0, f"[bench] exit {proc.returncode}: {proc.stdout[-2000:]}"
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    sub = line["sub"]
+    head = f"msm_g1_points_per_sec_2^{int(BENCH_ENV['GOSNARK_BENCH_MSM']).bit_length() - 1}"
+    assert line["metric"] == head, f"[bench] headline {line['metric']}, expected {head}"
+    assert line.get("correct") is not False, "[bench] a result is wrong"
+    errors = [k for k in sub if k.startswith("error_")]
+    assert not errors, f"[bench] failed stages: {errors}"
+    shares = sub.get("mfu", {})
+    assert set(shares) == {"msm_accumulate", "ntt_butterfly", "modmul"} and all(0 < v <= 1 for v in shares.values()), \
+        f"[bench] shares {shares}"
+    assert sub.get("card") == card, f"[bench] card {sub.get('card')!r}, this card is {card!r}"
+    counts = sub["launches"]
+    for k in K1_FORMS + ("K2", "K3"):
+        assert counts[k] > 0, f"{k} not launched on the bench path"
+    print(f"[bench] python -m go_snark_study_tpu_torch.bench with {json.dumps(BENCH_ENV)}: exit 0, {wall:.1f} s "
+          f"wall; {line['metric']} {line['value']:.0f} {line['unit']}, vs_baseline {line['vs_baseline']:.1f}  ({card})")
+    print(json.dumps({"bench": line}))
+    return dict(counts=counts, wall_s=wall)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -2209,14 +2271,15 @@ def main(argv=None) -> int:
     from go_snark_study_tpu_torch.profiling import kernel_objects
     from go_snark_study_tpu_torch.synthetic import mul_chain_r1cs
 
+    t_script, phase_s = time.perf_counter(), {}
     card = card_line()
     clock_hz = max_sm_clock_hz()
     print(f"[card] {card}; max SM clock {clock_hz / 1e6:.0f} MHz; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     if "build" in phases:
-        t0 = time.perf_counter()
+        t_phase = time.perf_counter()
         log = _build.build_all()
-        print(f"[build] {len(log)} kernel sources in {time.perf_counter() - t0:.1f} s wall  ({card})")
+        print(f"[build] {len(log)} kernel sources in {time.perf_counter() - t_phase:.1f} s wall  ({card})")
         for name, rec in log.items():
             regs = [ln.strip().replace("ptxas info    : ", "") for ln in rec["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln or "Function properties" in ln]
@@ -2242,42 +2305,65 @@ def main(argv=None) -> int:
                 print(f"[build] K4 whole-transform {fn}: {regs} registers; {props}  ({card})")
             bad = [fn for fn, (_, props) in k4.items() if props != NO_STACK]
             assert len(k4) == 1 and not bad, f"K4 whole-transform kernel with a stack frame or spills: {list(k4)}"
+        phase_s["build"] = time.perf_counter() - t_phase
 
     # before any prove: the first row evaluation would make the library
     route = native_route(card)
     rows = {}
     if "kernels" in phases:
+        t_phase = time.perf_counter()
         check_kernels(torch, clock_hz, rows, card)
+        phase_s["kernels"] = time.perf_counter() - t_phase
 
     paths = {}
     if "main" in phases:
+        t_phase = time.perf_counter()
         paths["main"] = run_path(torch, f"2^{MAIN_LOG}", mul_chain_r1cs(1 << MAIN_LOG, seed=1), 7, True, card)
         main_path = paths["main"]
         for k in K1_FORMS + ("K2", "K3"):
             assert main_path["counts"][k] > 0, f"{k} not launched on the 2^{MAIN_LOG} path"
         k1_per_prove = sum(main_path["prove_counts"][k] for k in K1_FORMS)
         assert k1_per_prove <= 80, f"K1 launched {k1_per_prove} times in one 2^{MAIN_LOG} prove"
+        phase_s["main"] = time.perf_counter() - t_phase
     if "small" in phases:
+        t_phase = time.perf_counter()
         small = paths["small"] = run_path(torch, f"2^{SMALL_LOG}", mul_chain_r1cs(1 << SMALL_LOG, seed=1), 7, True,
                                           card)
         assert small["prove_counts"]["K4"] == K4_PER_PROVE, \
             f"K4 whole-transform launched {small['prove_counts']['K4']} times in one 2^{SMALL_LOG} prove"
         assert small["counts"]["K4 stage"] == 0, f"K4 stage form launched on the 2^{SMALL_LOG} path"
         rows["small_vs_stage_path"] = compare_stage_path(torch, small, card)
+        phase_s["small"] = time.perf_counter() - t_phase
     if "dsl" in phases:
+        t_phase = time.perf_counter()
         paths["dsl"] = run_dsl(torch, card, paths.get("main"), route)
+        phase_s["dsl"] = time.perf_counter() - t_phase
     if "parity" in phases:
+        t_phase = time.perf_counter()
         paths["parity"] = run_parity(card)
+        phase_s["parity"] = time.perf_counter() - t_phase
     if "cli" in phases:
+        t_phase = time.perf_counter()
         paths["cli"] = run_cli(torch, card, paths)
+        phase_s["cli"] = time.perf_counter() - t_phase
     if "sharded" in phases:
+        t_phase = time.perf_counter()
         paths["sharded"] = run_sharded(torch, card, paths)
+        phase_s["sharded"] = time.perf_counter() - t_phase
     if "ladder" in phases:
+        t_phase = time.perf_counter()
         paths["ladder"] = run_ladder(torch, clock_hz, card)
         rows["ladder_sites"] = paths["ladder"]["sites"]
+        phase_s["ladder"] = time.perf_counter() - t_phase
     if "chunked" in phases:
+        t_phase = time.perf_counter()
         paths["chunked"] = run_chunked(torch, clock_hz, card)
         rows["chunked_sites"] = paths["chunked"]["sites"]
+        phase_s["chunked"] = time.perf_counter() - t_phase
+    if "bench" in phases:
+        t_phase = time.perf_counter()
+        paths["bench"] = run_bench(card)
+        phase_s["bench"] = time.perf_counter() - t_phase
 
     kernels = []
     objs = kernel_objects()
@@ -2334,6 +2420,8 @@ def main(argv=None) -> int:
                 "chunked_sites"):
         if key in rows:
             print(json.dumps({key.lower(): rows[key]}))
+    print(f"[script] seconds by phase {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}; the whole script "
+          f"{time.perf_counter() - t_script:.1f} s  ({card})")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 // Jacobian point arithmetic over Fp (G1) and Fp2S (G2, a pair of threads
 // per lane), shared by K1's per-lane kernel
-// (point_add.cu) and its MSM forms (msm_scan.cu).
+// (point_add.cu) and its MSM forms (msm_apply.cu, msm_seg_scan.cu,
+// msm_reduce.cu).
 //
 // The formulas are those of the JAX package's ops/curve_ops.py
 // (madd-2007-bl, add-2007-bl, dbl-2009-l) with its case selection: equal

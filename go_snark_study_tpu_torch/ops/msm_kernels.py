@@ -4,9 +4,10 @@ The JAX package writes the tiled accumulation, the segmented merge scan and
 the bucket reduction of ``go_snark_study_tpu/ops/msm.py`` as ``jax.lax.scan``
 / ``fori_loop`` loops over its point kernel
 (``ops/pallas_curve.py::_point_kernel``); on the TPU each loop is one
-compiled program.  Here each loop is a launch of ``csrc/msm_scan.cu`` in
-which every thread owns one lane (a pair of threads for G2) across all the
-loop's steps:
+compiled program.  Here each loop is a launch of a CUDA kernel
+(``csrc/msm_apply.cu``, ``msm_seg_scan.cu``, ``msm_reduce.cu``, one
+translation unit each, over ``msm_common.cuh``) in which every thread owns
+one lane (a pair of threads for G2) across all the loop's steps:
 
   * :func:`apply`: the K-step tiled accumulation over a sort plan, sign
     folding and compaction included (one launch per window group);
@@ -24,8 +25,7 @@ are the JAX package's loops over the plain K1), so the results are bit for
 bit those of the JAX engine, and a flag fires on the same inputs.  A
 kernel folds its flags into one int32 on the device.
 
-What bounds the forms on the H100 is in the source note of
-``csrc/msm_scan.cu``.  On a CUDA tensor a wrapper launches its kernel or
+What bounds each form on the H100 is in its source's note.  On a CUDA tensor a wrapper launches its kernel or
 raises; only a CPU tensor takes the plain version.  ``APPLY.launches``,
 ``SEG_SCAN.launches`` and ``REDUCE.launches`` count the kernel launches.
 """
@@ -60,17 +60,17 @@ _REPLACES = "go_snark_study_tpu/ops/pallas_curve.py:243"
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 APPLY = _build.Kernel(
-    "K1 msm_apply", "msm_scan", "gs_msm_apply",
+    "K1 msm_apply", "msm_apply", "gs_msm_apply",
     [_I, _I, _P, _LL, _P, _P, _P, _P, _I, _LL, _LL, _LL, _P, _LL, _P, _P],
     _REPLACES,
 )
 SEG_SCAN = _build.Kernel(
-    "K1 msm_seg_scan", "msm_scan", "gs_msm_seg_step",
+    "K1 msm_seg_scan", "msm_seg_scan", "gs_msm_seg_step",
     [_I, _I, _P, _P, _P, _LL, _LL, _LL, _P, _P],
     _REPLACES,
 )
 REDUCE = _build.Kernel(
-    "K1 msm_reduce", "msm_scan", "gs_msm_reduce",
+    "K1 msm_reduce", "msm_reduce", "gs_msm_reduce",
     [_I, _I, _I, _P, _P, _LL, _I, _I, _P, _P, _P, _P],
     _REPLACES,
 )

@@ -12,6 +12,8 @@ Mirrors ``go_snark_study_tpu/profiling.py``.  This module provides:
   * ``span(label, device)`` — a ``timed`` block that records only when
     ``GOSNARK_MSM_PROFILE=1`` (the MSM hook of ``ops/msm.py`` and the
     prover's host phases use it);
+  * ``profiling()`` — turns ``GOSNARK_MSM_PROFILE=1`` on for a block, with
+    a fresh ``PROFILER``, and restores the variable after it;
   * ``kernel_objects`` / ``reset_counts`` / ``launch_counts`` — every
     kernel of the port by its short name, and its launch count in this
     process.
@@ -35,6 +37,7 @@ __all__ = [
     "PROFILER",
     "timed",
     "span",
+    "profiling",
     "ChipModel",
     "CHIP_MODELS",
     "kernel_cost",
@@ -265,3 +268,20 @@ def span(label: str, device=None, when: bool = True):
 
         torch.cuda.synchronize(device)
     PROFILER.record(label, time.perf_counter() - t0)
+
+
+@contextmanager
+def profiling():
+    """Run the block with ``GOSNARK_MSM_PROFILE=1`` and a fresh
+    :data:`PROFILER` (yielded); the variable's earlier value, or its
+    absence, is restored after the block."""
+    old = os.environ.get("GOSNARK_MSM_PROFILE")
+    os.environ["GOSNARK_MSM_PROFILE"] = "1"
+    PROFILER.reset()
+    try:
+        yield PROFILER
+    finally:
+        if old is None:
+            del os.environ["GOSNARK_MSM_PROFILE"]
+        else:
+            os.environ["GOSNARK_MSM_PROFILE"] = old

@@ -215,6 +215,25 @@ def test_profiler_records_and_reports(monkeypatch):
     assert profiling.PROFILER.calls["test.span"] == 1
 
 
+@pytest.mark.parametrize("earlier", [None, "1", "0"])
+def test_profiling_block_restores_the_variable(monkeypatch, earlier):
+    """profiling() records spans inside its block with a fresh profiler and
+    leaves GOSNARK_MSM_PROFILE as it found it, set or not."""
+    from go_snark_study_tpu_torch import profiling
+
+    if earlier is None:
+        monkeypatch.delenv("GOSNARK_MSM_PROFILE", raising=False)
+    else:
+        monkeypatch.setenv("GOSNARK_MSM_PROFILE", earlier)
+    profiling.PROFILER.record("test.stale", 1.0)
+    with profiling.profiling() as prof:
+        assert prof is profiling.PROFILER and "test.stale" not in prof.calls
+        with profiling.span("test.block", "cpu"):
+            pass
+    assert prof.calls["test.block"] == 1
+    assert os.environ.get("GOSNARK_MSM_PROFILE") == earlier
+
+
 def test_launch_count_registry():
     """profiling.kernel_objects names every kernel of the port once, with
     its source and the TPU kernel it replaces; reset_counts zeroes every

@@ -117,6 +117,7 @@ def test_import_loads_no_jax():
         "import go_snark_study_tpu_torch.profiling, go_snark_study_tpu_torch.ops.fields\n"
         "import go_snark_study_tpu_torch.parallel.checks, go_snark_study_tpu_torch.parallel.scaling\n"
         "import go_snark_study_tpu_torch.parallel.sharded_prover, go_snark_study_tpu_torch.graft_entry\n"
+        "import go_snark_study_tpu_torch.bench\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'go_snark_study_tpu' or m.startswith('go_snark_study_tpu.')]\n"
         "print(bad)\n"

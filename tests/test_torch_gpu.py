@@ -362,3 +362,30 @@ def test_keyfile_roundtrip_on_card(cuda_device, tmp_path):
     proof = fast.prove(r1cs, loaded.pk, rng=random.Random(1))
     publics = r1cs.witness[1 : r1cs.n_public + 1]
     assert verify_proof(loaded.vk, proof, publics)
+
+
+@pytest.mark.gpu
+def test_bench_module_on_card(cuda_device):
+    """``python -m go_snark_study_tpu_torch.bench`` as a user runs it, at
+    small sizes through bench.py's variables: exit 0 and bench.py's line
+    last, every result right, no failed stage, each share at most 1."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, GOSNARK_BENCH_MSM="16384", GOSNARK_BENCH_NTT="16384", GOSNARK_BENCH_PROVE="14",
+               GOSNARK_BENCH_MSM21="0", PYTHONPATH=repo)
+    out = subprocess.run([sys.executable, "-m", "go_snark_study_tpu_torch.bench"], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    sub = line["sub"]
+    assert line["metric"] == "msm_g1_points_per_sec_2^14" and line["correct"] is True and line["value"] > 0
+    assert not [k for k in sub if k.startswith(("error_", "skipped_"))], sub
+    assert set(sub["mfu"]) == {"msm_accumulate", "ntt_butterfly", "modmul"}
+    assert all(0 < v <= 1 for v in sub["mfu"].values()), sub["mfu"]
+    assert {"groth16_setup_2^14_s", "groth16_prove_2^14_s", "groth16_prove_cold_2^14_s", "pk_hbm_2^14_mb"} <= set(sub)
+    assert sub["card"] not in ("", "cpu") and sub["chip_model"] == "NVIDIA H100 SXM"
+    assert sub["launches"]["K1 apply"] > 0 and sub["launches"]["K3"] > 0
