@@ -1155,20 +1155,17 @@ def device_pk_leaves(dpk) -> dict:
 
 
 def profiled(fn):
-    """Run ``fn`` with GOSNARK_MSM_PROFILE=1 and a fresh profiler: (the
-    profiler's report for the H100, {label: {"s", "calls"}})."""
+    """Run ``fn`` with GOSNARK_MSM_PROFILE=1 and a fresh profiler:
+    {label: {"s", "calls"}} of its spans."""
     from go_snark_study_tpu_torch.profiling import profiling
 
     with profiling() as prof:
         fn()
-    rows = {k: dict(s=prof.times[k], calls=prof.calls[k]) for k in sorted(prof.times)}
-    return prof.report(chip="h100"), rows
+    return {k: dict(s=prof.times[k], calls=prof.calls[k]) for k in sorted(prof.times)}
 
 
-def say_profile(what: str, report: str, card: str):
-    print(f"[cli] profile of {what} (GOSNARK_MSM_PROFILE=1)  ({card}):")
-    for ln in report.splitlines():
-        print(f"[cli]   {ln}")
+def say_profile(what: str, rows: dict, card: str):
+    print(f"[cli] spans of {what} (GOSNARK_MSM_PROFILE=1)  ({card}): {json.dumps(rows)}")
 
 
 def run_cli(torch, card: str, paths: dict):
@@ -1224,16 +1221,16 @@ def run_cli(torch, card: str, paths: dict):
             for k in K1_FORMS + ("K2", "K3"):
                 assert counts[k] > 0, f"{k} not launched on the cli path"
             key_bytes = os.path.getsize(keyfile.KEYFILE)
-            report, profile = profiled(lambda: run("groth16 genproofs --fast, GOSNARK_MSM_PROFILE=1",
-                                                   ["groth16", "genproofs", "--fast"], 0))
-            for label in ("msm.plan", "msm.apply+badd", "msm.reduce", "prove.msm", "cli.prove"):
+            profile = profiled(lambda: run("groth16 genproofs --fast, GOSNARK_MSM_PROFILE=1",
+                                           ["groth16", "genproofs", "--fast"], 0))
+            for label in ("msm.plan", "msm.apply+badd", "msm.reduce", "prove.msm", "prove"):
                 assert label in profile, f"[cli] no {label} in the profile"
             _, r1cs = _load_compiled_sparse()
         finally:
             os.chdir(old)
     print(f"[cli] launches per genproofs: {json.dumps(per_prove)}; whole flow {json.dumps(counts)}  ({card})")
     print(f"[cli] key file {key_bytes} bytes  ({card})")
-    say_profile("one genproofs --fast", report, card)
+    say_profile("one genproofs --fast", profile, card)
 
     # one engine: setups with and without host lists, in turns, its
     # fixed-base tables built first
@@ -1286,8 +1283,8 @@ def run_cli(torch, card: str, paths: dict):
     cold = FastGroth16()
     _, t_cold = prove(cold)
     _, t_second = prove(cold)
-    warm_report, warm_profile = profiled(lambda: prove(cold))  # a third prove on that engine
-    say_profile("a third prove on that engine", warm_report, card)
+    warm_profile = profiled(lambda: prove(cold))  # a third prove on that engine
+    say_profile("a third prove on that engine", warm_profile, card)
     warm = FastGroth16()
     t0 = time.perf_counter()
     steps = warm.warmup(domains=(1 << DSL_LOG,), fixed_base=True)
@@ -1302,8 +1299,7 @@ def run_cli(torch, card: str, paths: dict):
                                                     tensors_equal=len(wl)),
                 setup_s=setup_s, first_prove_s=t_cold, second_prove_s=t_second, warmup_s=t_warmup,
                 warmup_steps_s=steps, first_prove_after_warmup_s=t_warm, profile=profile,
-                profile_report=report.splitlines(), warm_prove_profile=warm_profile,
-                warm_prove_profile_report=warm_report.splitlines())
+                warm_prove_profile=warm_profile)
     print(json.dumps({"cli": line}))
     return dict(counts=counts)
 
@@ -1541,9 +1537,8 @@ def ladder_tier(torch, fast, log_n: int, card: str, phase: str = "ladder") -> di
     prof = host = None
     if log_n == LADDER_TIERS[-1]:  # where the time of a 2^20 prove goes: device (profiler), host phases (spans)
         prof = profile_prove(torch, fast, r1cs, pk, random.Random(4), tag, card)
-        report, host = profiled(lambda: fast.prove(r1cs, pk, rng=random.Random(5)))
-        for ln in report.splitlines():
-            print(f"[{tag}]   {ln}")
+        host = profiled(lambda: fast.prove(r1cs, pk, rng=random.Random(5)))
+        print(f"[{tag}] spans of a warm prove (GOSNARK_MSM_PROFILE=1): {json.dumps(host)}")
     setup_rows = {k: round(v, 3) for k, v in t["setup_spans_s"].items()}
     print(f"[{tag}] {r1cs.n_constraints} constraints (mul_chain_r1cs {t['r1cs_s']:.2f} s): setup {t['setup_s']:.3f} s "
           f"({json.dumps(setup_rows)}), prove cold {t['prove_cold_s']:.3f} s, warm {t['prove_s']:.3f} s, verify "

@@ -7,9 +7,7 @@ names its accelerator) and exit codes.  ``main(argv, device=None)``: the
 Python caller passes ``device="cpu"``; without a card they raise.  The
 other commands run on the host and need no card (``groth16 verify`` reads
 only the key file's header).  Kernels build at first use into
-``build/torch_kernels/``; there is no compile cache to enable.  With
-``GOSNARK_MSM_PROFILE=1`` the fast commands' steps are timed into
-``profiling.PROFILER`` (``cli.*``).
+``build/torch_kernels/``; there is no compile cache to enable.
 
 Reference: cli/main.go:28-549.  Commands: ``compile``, ``trustedsetup``,
 ``genproofs``, ``verify`` and the ``groth16`` subtree, operating on the same
@@ -44,7 +42,6 @@ from typing import List
 from ..api import compile_circuit
 from ..models import groth16 as g16, pinocchio as pgh
 from ..models.context import default_context
-from ..profiling import span
 from ..utils import base10, raw
 
 
@@ -79,12 +76,9 @@ def cmd_compile(args) -> int:
         from ..circuitcompiler import parse_file
         from ..synthetic import SparseR1CS
 
-        with span("cli.parse"):
-            circuit = parse_file(args.circuit)
-        with span("cli.witness"):
-            w = circuit.calculate_witness(private, public, field_modulus=FR_MOD)
-        with span("cli.sparse"):
-            sparse = SparseR1CS.from_circuit(circuit, witness=w)
+        circuit = parse_file(args.circuit)
+        w = circuit.calculate_witness(private, public, field_modulus=FR_MOD)
+        sparse = SparseR1CS.from_circuit(circuit, witness=w)
         if not sparse.check():
             print("error: witness does not satisfy the constraint system",
                   file=sys.stderr)
@@ -161,13 +155,10 @@ def _load_compiled_sparse():
     from ..bn128.constants import R as FR_MOD
     from ..synthetic import SparseR1CS
 
-    with span("cli.circuit"):
-        circuit = raw.circuit_from_dict(_read_json("compiledcircuit.json"))
-        private, public = _read_inputs()
-    with span("cli.witness"):
-        w = circuit.calculate_witness(private, public, field_modulus=FR_MOD)
-    with span("cli.sparse"):
-        sparse = SparseR1CS.from_circuit(circuit, witness=w)
+    circuit = raw.circuit_from_dict(_read_json("compiledcircuit.json"))
+    private, public = _read_inputs()
+    w = circuit.calculate_witness(private, public, field_modulus=FR_MOD)
+    sparse = SparseR1CS.from_circuit(circuit, witness=w)
     return circuit, sparse
 
 
@@ -178,11 +169,9 @@ def cmd_groth16_trustedsetup(args) -> int:
 
         fast = FastGroth16(device=args.device)
         _, sparse = _load_compiled_sparse()
-        with span("cli.setup"):
-            setup = fast.setup(sparse, materialize_host=False)
+        setup = fast.setup(sparse, materialize_host=False)
         stripped = setup.strip_toxic()
-        with span("cli.save_key"):
-            keyfile.save_fast_setup(keyfile.KEYFILE, stripped)
+        keyfile.save_fast_setup(keyfile.KEYFILE, stripped)
         print("groth16 trusted setup generated (GPU evaluation-form path)")
         print(f"wrote {keyfile.KEYFILE} (binary fast-path key; "
               "use the non-fast setup for the JSON wire format)")
@@ -226,11 +215,9 @@ def cmd_groth16_genproofs(args) -> int:
 
         fast = FastGroth16(device=args.device)
         _, sparse = _load_compiled_sparse()
-        with span("cli.load_key"):
-            setup = _load_groth_setup(fast.device)
+        setup = _load_groth_setup(fast.device)
         t0 = time.time()
-        with span("cli.prove"):
-            proof = fast.prove(sparse, setup.pk)
+        proof = fast.prove(sparse, setup.pk)
         print(f"proof generated in {time.time()-t0:.3f}s (GPU fast path)")
         _write_json("proofs.json", raw.groth_proof_to_dict(proof))
         print("wrote proofs.json")

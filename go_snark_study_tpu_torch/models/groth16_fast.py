@@ -26,9 +26,11 @@ and a key set up afterwards is padded to a multiple of its chunk.
 ``prove_sharded`` proves over a mesh of ranks (:mod:`..parallel`).  The JAX
 prover's three-thread pool existed for concurrent XLA compiles; the port
 enqueues the G1, G2 and H sides in that order on one stream.  With
-``GOSNARK_MSM_PROFILE=1`` the prover's phases are timed into
-``profiling.PROFILER`` (``prove.*``), and so are the setup's host loops and
-its device commits (``setup.*``).
+``GOSNARK_MSM_PROFILE`` on (``1`` fenced, ``events`` unfenced:
+:mod:`..profiling`), each proof is a ``prove`` span whose children time the
+prover's phases (``prove.*``: ``prove.h`` is the H pipeline
+``prove.h.ntt`` and the H MSM ``prove.h.msm``), and so are the setup's host
+loops and its device commits (``setup.*``).
 """
 
 from __future__ import annotations
@@ -457,7 +459,12 @@ class FastGroth16:
     # ------------------------------------------------------------------
     def prove(self, r1cs: SparseR1CS, pk: Pk, rng=None) -> Proof:
         """Groth16 prover: same assembly as groth16.generate_proofs
-        (groth16.go:225-279) with the NTT H(x) and device MSMs."""
+        (groth16.go:225-279) with the NTT H(x) and device MSMs; the
+        ``prove`` span, the root of a proof's phases."""
+        with span("prove", self.device):
+            return self._prove(r1cs, pk, rng)
+
+    def _prove(self, r1cs: SparseR1CS, pk: Pk, rng) -> Proof:
         ctx = self.ctx
         r = C.R
         g1, g2 = ctx.bn.g1, ctx.bn.g2
@@ -494,8 +501,10 @@ class FastGroth16:
             s_cd = self.msm_g1.window_sums_eager(dpk.cdelta, wp_limbs, c_p)
             s_b2 = self.msm_g2.window_sums_eager(dpk.b2, w_limbs, c_m2, plans_w2)
         with span("prove.h", dv):
-            h_digits = self._get_h_jit(n, dpk.n_pad)(a_d, b_d, c_d, *self._ntt_args(n))
-            s_h = self.msm_g1.window_sums_eager(dpk.ptau, h_digits, c_h)
+            with span("prove.h.ntt", dv):
+                h_digits = self._get_h_jit(n, dpk.n_pad)(a_d, b_d, c_d, *self._ntt_args(n))
+            with span("prove.h.msm", dv):
+                s_h = self.msm_g1.window_sums_eager(dpk.ptau, h_digits, c_h)
 
         # degeneracy-flag check: incomplete-formula MSMs re-run through the
         # complete-engine twin if their flag fired (cryptographically never

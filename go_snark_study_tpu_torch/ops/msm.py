@@ -150,12 +150,14 @@ def signed_digits_from_limbs(limbs: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def combine_window_sums(host_group, window_pts, c: int):
-    """Exact host combination: Σ_w 2^(c·w) · S_w, MSB window first."""
-    total = host_group.zero()
-    for wp in reversed(window_pts):
-        for _ in range(c):
-            total = host_group.double(total)
-        total = host_group.add(total, wp)
+    """Exact host combination: Σ_w 2^(c·w) · S_w, MSB window first (the
+    ``msm.combine`` span)."""
+    with span("msm.combine"):
+        total = host_group.zero()
+        for wp in reversed(window_pts):
+            for _ in range(c):
+                total = host_group.double(total)
+            total = host_group.add(total, wp)
     return total
 
 
@@ -459,10 +461,11 @@ class MSMEngine:
         each chunk's groups are applied and merged, and the chunks' buckets
         are added (``badd``) before the one reduction.
 
-        GOSNARK_MSM_PROFILE=1 fences and times each phase of the tiled and
-        chunk paths (``msm.plan``, ``msm.apply+badd``, ``msm.reduce``) into
-        ``profiling.PROFILER``; it changes the asynchronous dispatch, so it
-        is for analysis runs only."""
+        Each phase of the tiled and chunk paths is a span (``msm.plan``,
+        ``msm.apply+badd``, ``msm.reduce``: :mod:`..profiling`).  With
+        ``GOSNARK_MSM_PROFILE=1`` each ends in a fence, which changes the
+        asynchronous dispatch; with ``events`` none does, and each gets its
+        stream time from two CUDA events."""
         n = tree_leaves(aff_points)[0].shape[-1]
         if plans is None:
             with span("msm.plan", self.device, when=n >= self.tile_threshold):
@@ -537,11 +540,16 @@ class MSMEngine:
 
     def window_sums_checked(self, aff_points, limbs, c: int, plans=None):
         """window_sums_eager + host flag check + automatic complete-formula
-        re-run.  Returns window sums only (exactly correct)."""
+        re-run.  Returns window sums only (exactly correct).  The flag read,
+        where the host waits for the card, and the re-run are the
+        ``msm.flags`` span."""
         sums, bad = self.window_sums_eager(aff_points, limbs, c, plans)
-        if not self.complete and bool(bad):
-            self.fallback_hits += 1
-            sums, _ = self.fallback_engine().window_sums_eager(aff_points, limbs, c, plans)
+        if self.complete:
+            return sums
+        with span("msm.flags", self.device):
+            if bool(bad):
+                self.fallback_hits += 1
+                sums, _ = self.fallback_engine().window_sums_eager(aff_points, limbs, c, plans)
         return sums
 
     def msm_device(self, dev_points, limbs):

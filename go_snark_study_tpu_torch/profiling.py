@@ -1,41 +1,55 @@
-"""Per-kernel profiling and speed-of-light accounting on the card.
+"""The port's one tracer, its kernel launch counts and its cost model.
 
-Mirrors ``go_snark_study_tpu/profiling.py``.  This module provides:
+  * ``span(label, device)`` — a traced block of the program (the MSM engine's
+    phases, the prover's phases, the setup's loops).  What it does is set by
+    ``GOSNARK_MSM_PROFILE``:
 
-  * ``timed(label, sync=None)`` — context manager accumulating wall times
-    per label; device work is fenced with ``torch.cuda.synchronize`` on the
-    device of the first tensor in ``sync`` (nothing to fence on the CPU);
-  * ``kernel_cost`` — the analytic cost of the port's kernels (32-bit IMADs
-    and bytes moved), from which ``speed_of_light`` derives the attainable
-    time on a given chip;
-  * ``report()`` — a table of measured times vs model;
-  * ``span(label, device)`` — a ``timed`` block that records only when
-    ``GOSNARK_MSM_PROFILE=1`` (the MSM hook of ``ops/msm.py`` and the
-    prover's host phases use it);
+      - unset or ``0``: nothing; the span yields after one lookup of the
+        variable, records no CUDA event and opens no profiler range;
+      - ``1``: fenced.  A span with a CUDA device drains the card's queue
+        (``torch.cuda.synchronize``) at its end, so its host time holds its
+        device work; the fences change the asynchronous dispatch;
+      - ``events``: unfenced.  Nothing waits for the card; a span with a
+        CUDA device records a CUDA event at each end on the current stream,
+        and its device time is resolved when :meth:`Profiler.events` is read.
+
+    In modes ``1`` and ``events`` every span calls ``PROFILER.record(label,
+    seconds)`` at its end and appends one entry to the bounded log that
+    ``PROFILER.events()`` reads as :class:`SpanEvent` records (host start
+    and end on ``time.perf_counter``, parent span, request id, device ms);
+    while a
+    ``torch.profiler`` session runs, each span is also a
+    ``record_function(label)`` range, a ``user_annotation`` on the
+    profiler's own clock;
   * ``profiling()`` — turns ``GOSNARK_MSM_PROFILE=1`` on for a block, with
     a fresh ``PROFILER``, and restores the variable after it;
+  * ``kernel_cost`` and ``CHIP_MODELS`` — the analytic cost of the port's
+    kernels (32-bit IMADs and bytes moved) and the chips' attainable rates;
   * ``kernel_objects`` / ``reset_counts`` / ``launch_counts`` — every
     kernel of the port by its short name, and its launch count in this
     process.
 
 Imports nothing beyond the standard library at module load; ``torch`` is
-imported only to fence.
+imported only inside a span that is on.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import os
+import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Deque, Dict, List, Optional
 
 __all__ = [
     "Profiler",
     "PROFILER",
-    "timed",
+    "SpanEvent",
     "span",
     "profiling",
     "ChipModel",
@@ -174,100 +188,130 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in kernel_objects().items()}
 
 
-def _fence(sync) -> None:
-    """Wait for the card to finish the work behind the first tensor found
-    in ``sync`` (a tensor or a tuple/list/dict tree of them)."""
-    import torch
+MODE_VAR = "GOSNARK_MSM_PROFILE"
+MODES = ("1", "events")  # the values that turn spans on
+EVENT_LOG_LEN = 1 << 16  # events kept; the oldest go first
 
-    stack = [sync]
-    while stack:
-        x = stack.pop(0)
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                torch.cuda.synchronize(x.device)
-            return
-        if isinstance(x, dict):
-            stack.extend(x.values())
-        elif isinstance(x, (tuple, list)):
-            stack.extend(x)
+
+@dataclass
+class SpanEvent:
+    """One span that ended.  ``start`` and ``end``: ``time.perf_counter``
+    at its two ends; ``span_id``: its own id, ``parent``: the enclosing
+    span's id (None for a root); ``request``: the id of its root span's
+    request, a new one for every span opened with no span open.
+    ``device_ms`` (events mode, a span given a CUDA device): the stream's
+    time between the CUDA events recorded at its two ends; where the host
+    falls behind the card inside the span, the stream's own idle time there
+    counts too.  None for a host-only span and in mode ``1``."""
+
+    label: str
+    start: float
+    end: float
+    span_id: int
+    parent: Optional[int]
+    request: int
+    device_ms: Optional[float] = None
+
+    @property
+    def seconds(self) -> float:
+        return self.end - self.start
+
+
+def _resolved(entry: tuple) -> tuple:
+    """A log entry with its pair of CUDA events, if it has one, turned into
+    the milliseconds between them (waiting for the end one where the card
+    has not reached it)."""
+    marks = entry[-1]
+    if not isinstance(marks, tuple):
+        return entry
+    marks[1].synchronize()
+    return entry[:-1] + (marks[0].elapsed_time(marks[1]),)
 
 
 class Profiler:
+    """Span totals by label (``times``, ``calls``) and the event log.  The
+    log holds plain tuples of numbers and strings, which CPython's collector
+    stops tracking at its next collection, so that a long run's log adds
+    nothing to a full collection's work; :meth:`events` makes the
+    :class:`SpanEvent` records."""
+
     def __init__(self):
         self.times: Dict[str, float] = defaultdict(float)
         self.calls: Dict[str, int] = defaultdict(int)
-
-    @contextmanager
-    def timed(self, label: str, sync=None):
-        """sync: optional tensor or tree of tensors whose device is
-        synchronized before stopping the clock."""
-        t0 = time.perf_counter()
-        yield
-        if sync is not None:
-            _fence(sync)
-        self.times[label] += time.perf_counter() - t0
-        self.calls[label] += 1
+        self._events: Deque[tuple] = deque(maxlen=EVENT_LOG_LEN)  # SpanEvent's fields, device ms last
+        self._ids = itertools.count()
+        self._requests = itertools.count()
+        self._open = threading.local()  # .stack: this thread's open (span id, request id), innermost last
 
     def record(self, label: str, seconds: float) -> None:
         self.times[label] += seconds
         self.calls[label] += 1
 
-    def report(self, chip: str = "h100") -> str:
-        """Tabulate recorded timings; labels registered with a kernel kind
-        (``label@kind:n``) also get their speed-of-light efficiency on
-        ``chip``."""
-        lines = [f"{'label':<36}{'calls':>6}{'total s':>10}{'per call':>12}"]
-        for label in sorted(self.times):
-            t, c = self.times[label], self.calls[label]
-            row = f"{label:<36}{c:>6}{t:>10.3f}{t / c:>11.4f}s"
-            if "@" in label:
-                try:
-                    kind, n = label.rsplit("@", 1)[1].split(":")
-                    sol = self.speed_of_light(label, kind, int(n), chip)
-                    row += f"  {100 * sol['efficiency']:5.1f}% SoL ({sol['bound']}-bound, {chip})"
-                except (KeyError, ValueError):
-                    pass
-            lines.append(row)
-        return "\n".join(lines)
-
-    def speed_of_light(self, label: str, kind: str, n: int, chip: str = "h100") -> dict:
-        """Efficiency of a measured kernel vs the chip's attainable rates."""
-        model = CHIP_MODELS[chip]
-        cost = kernel_cost(kind, n)
-        t = self.times[label] / max(1, self.calls[label])
-        t_sol, by = model.bound_s(cost["bytes"], cost["int32_ops"])
-        return {
-            "measured_s": t,
-            "sol_s": t_sol,
-            "bound": "memory" if by == "bytes" else "compute",
-            "efficiency": t_sol / t if t > 0 else 0.0,
-        }
+    def events(self) -> List[SpanEvent]:
+        """The logged spans in the order they ended, each one's device time
+        resolved (call after the caller's own synchronise: a span whose end
+        event the card has not reached is waited for)."""
+        entries = [_resolved(e) for e in self._events]
+        self._events.clear()
+        self._events.extend(entries)
+        return [SpanEvent(*e) for e in entries]
 
     def reset(self) -> None:
         self.times.clear()
         self.calls.clear()
+        self._events.clear()
+
+    def _stack(self) -> list:
+        stack = getattr(self._open, "stack", None)
+        if stack is None:
+            stack = self._open.stack = []
+        return stack
 
 
 PROFILER = Profiler()
-timed = PROFILER.timed
 
 
 @contextmanager
 def span(label: str, device=None, when: bool = True):
-    """Record the block's wall time under ``label`` into :data:`PROFILER`,
-    the card's queue drained at its end, when ``GOSNARK_MSM_PROFILE=1``
-    (and ``when``); otherwise nothing.  For analysis runs: the fences
-    change the asynchronous dispatch."""
-    if not (when and os.environ.get("GOSNARK_MSM_PROFILE") == "1"):
+    """Trace the block under ``label`` (``when`` false: never) in the mode
+    that ``GOSNARK_MSM_PROFILE`` sets (module docstring): off; ``1``, its
+    end fenced on ``device`` where that is a CUDA device; ``events``, no
+    fence and, on a CUDA device, its device time from two CUDA events.  On,
+    the span logs a :class:`SpanEvent`, calls ``PROFILER.record(label,
+    seconds)``, and, where a ``torch.profiler`` session was running when it
+    opened, runs inside ``torch.profiler.record_function(label)`` (the range
+    costs ~10 us of host time, so it is opened only where a trace takes
+    it).  A block that raises records nothing."""
+    mode = os.environ.get(MODE_VAR)
+    if not (when and mode in MODES):
         yield
         return
-    t0 = time.perf_counter()
-    yield
-    if device is not None and getattr(device, "type", device) == "cuda":
-        import torch
+    import torch
 
-        torch.cuda.synchronize(device)
-    PROFILER.record(label, time.perf_counter() - t0)
+    cuda = device is not None and getattr(device, "type", device) == "cuda"
+    stack = PROFILER._stack()
+    parent, request = stack[-1] if stack else (None, next(PROFILER._requests))
+    span_id = next(PROFILER._ids)
+    marks = stream = None
+    if cuda and mode == "events":
+        stream = torch.cuda.current_stream(device)
+        marks = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        marks[0].record(stream)
+    annotate = torch._C._autograd._profiler_enabled()
+    stack.append((span_id, request))
+    t0 = time.perf_counter()  # outside the range, so the host interval holds its annotation
+    try:
+        with torch.profiler.record_function(label) if annotate else contextlib.nullcontext():
+            yield
+            if marks is not None:
+                marks[1].record(stream)
+            elif cuda:
+                torch.cuda.synchronize(device)
+    finally:
+        stack.pop()
+    t1 = time.perf_counter()
+    PROFILER._events.append((label, t0, t1, span_id, parent, request, marks))
+    PROFILER.record(label, t1 - t0)
 
 
 @contextmanager
@@ -275,13 +319,13 @@ def profiling():
     """Run the block with ``GOSNARK_MSM_PROFILE=1`` and a fresh
     :data:`PROFILER` (yielded); the variable's earlier value, or its
     absence, is restored after the block."""
-    old = os.environ.get("GOSNARK_MSM_PROFILE")
-    os.environ["GOSNARK_MSM_PROFILE"] = "1"
+    old = os.environ.get(MODE_VAR)
+    os.environ[MODE_VAR] = "1"
     PROFILER.reset()
     try:
         yield PROFILER
     finally:
         if old is None:
-            del os.environ["GOSNARK_MSM_PROFILE"]
+            del os.environ[MODE_VAR]
         else:
-            os.environ["GOSNARK_MSM_PROFILE"] = old
+            os.environ[MODE_VAR] = old

@@ -194,16 +194,14 @@ def test_kernel_cost_and_h100_bound():
 
 
 def test_profiler_records_and_reports(monkeypatch):
+    """A span records nothing with the variable unset, and its label, call
+    count and time with it set to 1; ``record`` adds to the totals."""
     from go_snark_study_tpu_torch import profiling
 
     prof = profiling.Profiler()
-    with prof.timed("step@mont_mul:65536", sync=(torch.zeros(2),)):
-        pass
-    prof.record("step@mont_mul:65536", 1e-3)
-    rows = prof.report(chip="h100").splitlines()
-    assert rows[1].startswith("step@mont_mul:65536") and "SoL (memory-bound, h100)" in rows[1]
-    sol = prof.speed_of_light("step@mont_mul:65536", "mont_mul", 65536)
-    assert sol["bound"] == "memory" and 0 < sol["efficiency"] < 1
+    prof.record("step", 1e-3)
+    prof.record("step", 2e-3)
+    assert prof.calls["step"] == 2 and prof.times["step"] == pytest.approx(3e-3)
     monkeypatch.delenv("GOSNARK_MSM_PROFILE", raising=False)
     before = dict(profiling.PROFILER.calls)
     with profiling.span("test.span"):

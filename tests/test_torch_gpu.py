@@ -259,6 +259,61 @@ def test_card_proof_matches_jax_record(cuda_device):
 
 
 @pytest.mark.gpu
+def test_spans_in_events_mode_on_card(cuda_device, monkeypatch, tmp_path):
+    """GOSNARK_MSM_PROFILE=events on a warm 2^12 proof on the card: no span
+    synchronises, every span given the card has its device time from CUDA
+    events, the phases nest under ``prove`` with one request id, each span
+    is a user_annotation of the torch.profiler trace, and the proof
+    verifies."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from go_snark_study_tpu_torch import profiling
+    from go_snark_study_tpu_torch.models.groth16 import verify_proof
+    from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
+    from go_snark_study_tpu_torch.synthetic import mul_chain_r1cs
+
+    r1cs = mul_chain_r1cs(1 << 12, seed=1)
+    fast = FastGroth16()
+    setup = fast.setup(r1cs, rng=random.Random(1), materialize_host=False)
+    monkeypatch.delenv("GOSNARK_MSM_PROFILE", raising=False)
+    fast.prove(r1cs, setup.pk, rng=random.Random(2))
+    torch.cuda.synchronize()
+    monkeypatch.setenv("GOSNARK_MSM_PROFILE", "events")
+    monkeypatch.setattr(profiling, "PROFILER", profiling.Profiler())
+
+    def no_sync(*a, **k):
+        raise AssertionError("torch.cuda.synchronize in events mode")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "synchronize", no_sync)
+            proof = fast.prove(r1cs, setup.pk, rng=random.Random(3))
+        torch.cuda.synchronize()
+    ev = profiling.PROFILER.events()
+    by = {e.label: e for e in ev}
+    host_only = {"prove.row_evals", "prove.combine", "msm.combine", "prove.assemble"}
+    assert {"prove", "prove.plans", "prove.msm", "prove.h", "prove.h.ntt", "prove.h.msm",
+            "prove.flags"} | host_only <= set(by)
+    assert len({e.request for e in ev}) == 1 and by["prove"].parent is None and ev[-1] is by["prove"]
+    assert by["prove.h.ntt"].parent == by["prove.h.msm"].parent == by["prove.h"].span_id
+    assert all(e.parent == by["prove.combine"].span_id for e in ev if e.label == "msm.combine")
+    for e in ev:
+        if e.label in host_only:
+            assert e.device_ms is None, e
+        else:
+            assert e.device_ms is not None and e.device_ms > 0, e
+    assert by["prove"].device_ms >= by["prove.h.ntt"].device_ms + by["prove.h.msm"].device_ms
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    notes = sorted(e["name"] for e in json.loads(path.read_text())["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") == "user_annotation")
+    assert notes == sorted(e.label for e in ev)
+    assert verify_proof(setup.vk, proof, r1cs.witness[1 : r1cs.n_public + 1])
+
+
+@pytest.mark.gpu
 def test_sharded_proof_nccl_one_rank_on_card(cuda_device):
     """prove_sharded over NCCL with one rank on the card, at 2^12
     constraints: the proof is FastGroth16.prove's from the same rng state,
@@ -330,7 +385,7 @@ def test_cli_fast_flow_on_card(cuda_device, tmp_path, monkeypatch):
     monkeypatch.setenv("GOSNARK_MSM_PROFILE", "1")
     profiling.PROFILER.reset()
     assert main(["groth16", "genproofs", "--fast"]) == 0
-    assert {"cli.prove", "prove.msm", "prove.h"} <= set(profiling.PROFILER.times)
+    assert {"prove", "prove.msm", "prove.h"} <= set(profiling.PROFILER.times)
     assert main(["groth16", "verify"]) == 0
     (tmp_path / "publicInputs.json").write_text(json.dumps([str(pub[0] + 1)]))
     assert main(["groth16", "verify"]) == 1
