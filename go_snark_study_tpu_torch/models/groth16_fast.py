@@ -10,11 +10,13 @@ Mirrors ``go_snark_study_tpu/models/groth16_fast.py`` (``FastGroth16``,
     proving key ON DEVICE, affine-normalised (one tree batch inversion on
     K2), so every proof MSM runs mixed adds;
   * prove hands the witness and the three row evaluations to the device
-    as bytes (``_prove_inputs``), builds one signed-digit sort plan shared by
-    the three same-witness MSMs (G2 included), runs four G1 MSMs and one G2
-    MSM (K1), each with its degeneracy flag and complete-formula re-run,
-    builds H(x) with the coset-trick NTT pipeline (K3 from 2^14 up, K4
-    below, K2 for every product), and combines the window sums on the host;
+    as bytes, written on the host into pinned staging buffers that the
+    prover keeps and copied without blocking (``_prove_inputs``), builds
+    one signed-digit sort plan shared by the three same-witness MSMs (G2
+    included), runs four G1 MSMs and one G2 MSM (K1), each with its
+    degeneracy flag and complete-formula re-run, builds H(x) with the
+    coset-trick NTT pipeline (K3 from 2^14 up, K4 below, K2 for every
+    product), and combines the window sums on the host;
   * proofs verify under :func:`.groth16.verify_proof`.
 
 ``warmup`` builds the kernels and the per-domain tables ahead of the first
@@ -82,6 +84,15 @@ class DevicePk:
     ptau: object = None  # G1 affine, n_pad lanes (tau^i Z(tau)/delta)
 
 
+@dataclass
+class _Staging:
+    """One shape's host buffers (witness, a, b, c) and the event recorded
+    after the last copies out of them."""
+
+    bufs: tuple
+    copied: Optional[object] = None  # torch.cuda.Event
+
+
 class FastGroth16:
     """Holds the engines for one device; reusable across circuits and proof
     calls.  ``device=None`` is the card (and raises without one); the CPU
@@ -103,6 +114,7 @@ class FastGroth16:
         self._fb_g2: Optional[FixedBaseEngine] = None
         self._sharded_provers: dict = {}
         self._h_progs: dict = {}
+        self._stagings: dict = {}
 
     # -- fixed-base engines (their host tables are built on first use) --
     @property
@@ -419,25 +431,50 @@ class FastGroth16:
         self._h_progs[key] = h_digits
         return h_digits
 
+    def _staging(self, m: int, n_rows: int):
+        """The host buffers of an (m signals, n_rows constraints) shape,
+        uint8, 32 bytes a value: witness, a, b, c; pinned on a CUDA device.
+        One set a shape, kept; before handing it out again this waits for
+        the copies of the proof that last filled it (a CUDA event), so that
+        no proof in flight has its inputs overwritten."""
+        st = self._stagings.get((m, n_rows))
+        if st is None:
+            pin = self.device.type == "cuda"
+            bufs = tuple(torch.empty(32 * k, dtype=torch.uint8, pin_memory=pin) for k in (m, n_rows, n_rows, n_rows))
+            st = self._stagings[(m, n_rows)] = _Staging(bufs)
+        elif st.copied is not None:
+            st.copied.synchronize()
+        return st
+
     def _prove_inputs(self, r1cs: SparseR1CS, dpk: DevicePk):
         """The prover's host-to-device crossing: (w_limbs (8, m_pad) and
         wp_limbs (8, mp_pad), the witness and its private part as plain
         limbs, the MSM digit source; (a, b, c) (8, n), the row evaluations
-        in Montgomery form, the H pipeline's inputs).  The witness and the
-        three products cross once each, as canonical bytes
-        (``SparseR1CS._row_evals_bytes``); ``wp_limbs`` is a slice of
-        ``w_limbs`` on the device, and each H input enters the Montgomery
-        domain by one K2 product (``FieldKernels.pack_bytes``)."""
+        in Montgomery form, the H pipeline's inputs).  The witness is
+        encoded and the three products written straight into the shape's
+        staging buffers (:meth:`_staging`; ``SparseR1CS._witness_into``,
+        ``_products_into``), which cross once each by a non-blocking copy;
+        ``wp_limbs`` is a slice of ``w_limbs`` on the device, and each H
+        input enters the Montgomery domain by one K2 product
+        (``FieldKernels.pack_bytes``)."""
         dv = self.device
         with span("prove.row_evals"):
-            a_b, b_b, c_b, w_b = r1cs._row_evals_bytes()
+            st = self._staging(len(r1cs.witness), len(r1cs.A))
+            w_h, a_h, b_h, c_h = st.bufs
+            with span("prove.row_evals.encode"):
+                r1cs._witness_into(w_h.numpy())
+            with span("prove.row_evals.products"):
+                r1cs._products_into(w_h.numpy(), (a_h.numpy(), b_h.numpy(), c_h.numpy()))
         with span("prove.witness", dv):
-            w_limbs = bytes_to_limbs(w_b, dv, dpk.m_pad)
-            m, lo = len(w_b) // 32, dpk.lo
+            w_limbs = bytes_to_limbs(w_h, dv, dpk.m_pad)
+            m, lo = w_h.numel() // 32, dpk.lo
             wp_limbs = w_limbs.new_zeros((LIMBS, dpk.mp_pad))
             wp_limbs[:, : m - lo] = w_limbs[:, lo:m]
         with span("prove.h_inputs", dv):
-            h_in = tuple(self.Kr.pack_bytes(v, lanes=dpk.n) for v in (a_b, b_b, c_b))
+            h_in = tuple(self.Kr.pack_bytes(v, lanes=dpk.n) for v in (a_h, b_h, c_h))
+            if dv.type == "cuda":
+                st.copied = torch.cuda.Event()
+                st.copied.record()
         return w_limbs, wp_limbs, h_in
 
     # ------------------------------------------------------------------

@@ -6,20 +6,30 @@ Mirrors ``go_snark_study_tpu/native.py``:
     ints <-> (8, N) int32 limb arrays in the port's layout (Montgomery by
     default), the JAX package's host bridge; the library works in the JAX
     (32, N) 8-bit layout and the arrays are relaid here;
-  * :meth:`NativeField.sparse_matvec_bytes` — A·w mod p as the library's
-    canonical 32-byte values, the fast prover's row evaluations, which
-    cross to the card as bytes (``ops.limbs.bytes_to_limbs``);
+  * :meth:`NativeField.sparse_matvec_into` — A·w mod p as the library's
+    canonical 32-byte values, written into a host buffer: the fast
+    prover's row evaluations, which cross to the card as bytes
+    (``ops.limbs.bytes_to_limbs``); :meth:`NativeField.sparse_matvec_bytes`
+    returns them as ``bytes``;
     :meth:`NativeField.sparse_matvec` decodes them to ints;
   * :meth:`NativeField.witness_eval` — field-mode witness computation.
 
-:func:`ints_to_bytes` and :func:`ints_from_bytes` are the byte encoding
-every crossing shares: 32 little-endian bytes a value, reduced mod p.
+:func:`ints_to_bytes`, :func:`ints_into` and :func:`ints_from_bytes` are the
+byte encoding every crossing shares: 32 little-endian bytes a value, reduced
+mod p.  The encoder reads the int objects themselves in C
+(``native/gosnark_pyints.c``, a library of its own built against this
+interpreter's headers and called through ``ctypes.PyDLL``, holding the GIL):
+an exact int in [0, p) is written as it is, and any other value (>= p,
+negative, a bool, a numpy integer) takes the Python route ``(x % p)``, item
+by item.  :data:`ENCODED` counts the values each route wrote.
 
-The library is the repository's top-level ``native/libgosnark_native.so``.
+The C++ library is the repository's top-level ``native/libgosnark_native.so``.
 When it is absent, the first use runs ``make -C native`` (g++); if that
 cannot make it, :func:`available` is False and callers take their Python
-paths, which give the same values.  This is host code: nothing here touches
-the device.
+paths, which give the same values.  The encoder's library is built on first
+use with the C compiler beside it (``build/native/``); without it every value
+takes the Python route, with the same bytes.  This is host code: nothing
+here touches the device.
 """
 
 from __future__ import annotations
@@ -28,17 +38,27 @@ import ctypes
 import os
 import shutil
 import subprocess
+import sysconfig
 from typing import List, Sequence
 
 import numpy as np
 
-__all__ = ["available", "NativeField", "LIB_PATH", "ints_to_bytes", "ints_from_bytes"]
+__all__ = ["available", "NativeField", "LIB_PATH", "ENCODED", "ints_to_bytes", "ints_into", "ints_from_bytes"]
 
-NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NATIVE_DIR = os.path.join(_ROOT, "native")
 LIB_PATH = os.path.join(NATIVE_DIR, "libgosnark_native.so")
+PYINTS_SRC = os.path.join(NATIVE_DIR, "gosnark_pyints.c")
+# named by the interpreter's ABI: the library holds its object layout
+PYINTS_LIB = os.path.join(_ROOT, "build", "native",
+                          "libgosnark_pyints" + (sysconfig.get_config_var("EXT_SUFFIX") or ".so"))
+
+# values each route of the encoder wrote in this process
+ENCODED = {"native": 0, "python": 0}
 
 _lib = None
 _tried_build = False
+_pyints = None
 
 
 def _try_build() -> None:
@@ -82,14 +102,14 @@ def _load():
         ctypes.c_int64,
         ctypes.c_int,
     ]
-    lib.gosnark_sparse_matvec.argtypes = [
+    lib.gosnark_sparse_matvec.argtypes = [  # w and out: addresses of host buffers
         ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_char_p,
+        ctypes.c_void_p,
         ctypes.c_int64,
-        ctypes.c_char_p,
+        ctypes.c_void_p,
     ]
     lib.gosnark_witness_eval.restype = ctypes.c_int
     lib.gosnark_witness_eval.argtypes = [
@@ -106,6 +126,42 @@ def available() -> bool:
     return _load() is not None
 
 
+def _build_pyints() -> None:
+    """Compiles the encoder's library when it is missing or older than its
+    source, into a file of its own renamed into place."""
+    if os.path.exists(PYINTS_LIB) and os.path.getmtime(PYINTS_LIB) >= os.path.getmtime(PYINTS_SRC):
+        return
+    cc = shutil.which("cc") or shutil.which("gcc")
+    include = sysconfig.get_paths()["include"]
+    if cc is None or not os.path.exists(os.path.join(include, "Python.h")):
+        return
+    os.makedirs(os.path.dirname(PYINTS_LIB), exist_ok=True)
+    tmp = f"{PYINTS_LIB}.{os.getpid()}.tmp"
+    subprocess.run([cc, "-O2", "-shared", "-fPIC", f"-I{include}", "-o", tmp, PYINTS_SRC],
+                   capture_output=True, timeout=120, check=False)
+    if os.path.exists(tmp):
+        os.replace(tmp, PYINTS_LIB)
+
+
+def _load_pyints():
+    """The encoder's library (built on first use), or False where it cannot
+    be built or loaded: the Python route then encodes every value."""
+    global _pyints
+    if _pyints is None:
+        _pyints = False
+        try:
+            _build_pyints()
+            lib = ctypes.PyDLL(PYINTS_LIB)
+        except (OSError, subprocess.SubprocessError):
+            return _pyints
+        lib.gosnark_encode_ints.restype = ctypes.c_ssize_t
+        lib.gosnark_encode_ints.argtypes = [ctypes.py_object, ctypes.c_void_p, ctypes.c_char_p, ctypes.py_object]
+        lib.gosnark_ints_to_bytes.restype = ctypes.py_object
+        lib.gosnark_ints_to_bytes.argtypes = [ctypes.py_object, ctypes.c_char_p, ctypes.py_object]
+        _pyints = lib
+    return _pyints
+
+
 def _i64ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 
@@ -114,9 +170,48 @@ def _i32ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 
 
+def _python_route(p: int):
+    """The encoding of one value that is not an exact int in [0, p), counted."""
+
+    def encode(x) -> bytes:
+        out = (x % p).to_bytes(32, "little")
+        ENCODED["python"] += 1
+        return out
+
+    return encode
+
+
+def _as_seq(xs) -> Sequence:
+    return xs if isinstance(xs, (list, tuple)) else list(xs)
+
+
 def ints_to_bytes(xs: Sequence[int], p: int) -> bytes:
-    """Each x mod p as 32 little-endian bytes: canonical values (< p)."""
-    return b"".join((x % p).to_bytes(32, "little") for x in xs)
+    """Each x mod p as 32 little-endian bytes: canonical values (< p).  The
+    C encoder where its library loads, else the Python route: the same
+    bytes either way."""
+    xs = _as_seq(xs)
+    lib = _load_pyints()
+    if lib:
+        python0 = ENCODED["python"]
+        out = lib.gosnark_ints_to_bytes(xs, p.to_bytes(32, "little"), _python_route(p))
+        ENCODED["native"] += len(xs) - (ENCODED["python"] - python0)
+        return out
+    return b"".join(map(_python_route(p), xs))
+
+
+def ints_into(xs: Sequence[int], p: int, out: np.ndarray) -> None:
+    """:func:`ints_to_bytes` written into ``out``, a writable C-contiguous
+    uint8 array of 32 bytes a value (a pinned staging tensor's
+    ``numpy()`` view, say), with no bytes object in between."""
+    xs = _as_seq(xs)
+    if out.dtype != np.uint8 or out.size != 32 * len(xs) or not out.flags.c_contiguous or not out.flags.writeable:
+        raise ValueError(f"expected {32 * len(xs)} writable contiguous uint8 bytes for {len(xs)} values")
+    lib = _load_pyints()
+    if lib:
+        n_slow = lib.gosnark_encode_ints(xs, out.ctypes.data, p.to_bytes(32, "little"), _python_route(p))
+        ENCODED["native"] += len(xs) - n_slow
+    elif xs:
+        out[:] = np.frombuffer(b"".join(map(_python_route(p), xs)), dtype=np.uint8)
 
 
 def ints_from_bytes(raw: bytes) -> List[int]:
@@ -176,21 +271,34 @@ class NativeField:
         self.lib.gosnark_unpack(self._ctx, _i32ptr(a8), buf, n, 1 if mont else 0)
         return ints_from_bytes(buf.raw)
 
-    def sparse_matvec_bytes(self, indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, witness) -> bytes:
+    def sparse_matvec_into(self, indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, witness: np.ndarray,
+                           out: np.ndarray) -> None:
         """CSR rows (int64 ``indptr``, ``cols``, signed ``vals``) times the
-        witness, mod p: the library's output, 32 little-endian bytes a row,
-        each value canonical (< p).  ``witness``: ints, or their
-        :meth:`ints_to_bytes` encoding when several products share it."""
+        witness, mod p, written by the library into ``out``: 32 little-endian
+        bytes a row, each value canonical (< p).  ``witness`` and ``out``:
+        C-contiguous uint8 arrays, the witness as :func:`ints_into` writes
+        it (32 bytes a signal)."""
         indptr = np.ascontiguousarray(indptr, dtype=np.int64)
         cols = np.ascontiguousarray(cols, dtype=np.int64)
         vals = np.ascontiguousarray(vals, dtype=np.int64)
         n_rows = len(indptr) - 1
-        out = ctypes.create_string_buffer(32 * n_rows)
-        self.lib.gosnark_sparse_matvec(
-            self._ctx, _i64ptr(indptr), _i64ptr(cols), _i64ptr(vals),
-            witness if isinstance(witness, bytes) else self.ints_to_bytes(witness), n_rows, out,
-        )
-        return out.raw
+        for a, size in ((witness, None), (out, 32 * n_rows)):
+            if a.dtype != np.uint8 or not a.flags.c_contiguous or (size is not None and a.size != size):
+                raise ValueError("sparse_matvec_into takes contiguous uint8 buffers, 32 bytes a value")
+        if not out.flags.writeable:
+            raise ValueError("sparse_matvec_into: the output buffer is read-only")
+        if len(cols) and (cols.min() < 0 or 32 * int(cols.max()) >= witness.size):
+            raise ValueError("sparse_matvec_into: a column lies outside the witness")
+        self.lib.gosnark_sparse_matvec(self._ctx, _i64ptr(indptr), _i64ptr(cols), _i64ptr(vals),
+                                       witness.ctypes.data, n_rows, out.ctypes.data)
+
+    def sparse_matvec_bytes(self, indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, witness) -> bytes:
+        """:meth:`sparse_matvec_into` as bytes.  ``witness``: ints, or their
+        :func:`ints_to_bytes` encoding."""
+        wb = witness if isinstance(witness, bytes) else self.ints_to_bytes(witness)
+        out = np.empty(32 * (len(indptr) - 1), dtype=np.uint8)
+        self.sparse_matvec_into(indptr, cols, vals, np.frombuffer(wb, dtype=np.uint8), out)
+        return out.tobytes()
 
     def sparse_matvec(self, indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, witness) -> List[int]:
         """:meth:`sparse_matvec_bytes`, decoded: one int per row."""

@@ -23,10 +23,10 @@ is axis 0.
 
 Host bridge (the JAX package's ``pack``/``unpack`` over its C++ runtime):
 values cross to the device as canonical little-endian 32-byte values
-(:func:`..native.ints_to_bytes`, or the C++ sparse product's output), one
-copy, relaid into limbs on the device (:func:`bytes_to_limbs`), and enter
-the Montgomery domain there by one product by R^2 (:meth:`FieldKernels.to_mont`,
-K2 on the card).  The host's Python Montgomery conversion
+(:func:`..native.ints_to_bytes`, or the C++ sparse product's output; the
+prover's pinned staging buffers), one copy, relaid into limbs on the device
+(:func:`bytes_to_limbs`), and enter the Montgomery domain there by one
+product by R^2 (:meth:`FieldKernels.to_mont`, K2 on the card).  The host's Python Montgomery conversion
 (:meth:`FieldKernels.pack_python`) is the bridge's plain version.
 """
 
@@ -68,22 +68,29 @@ def ints_to_limbs_np(xs: Sequence[int]) -> np.ndarray:
     return np.array(arr.T, order="C").view(np.int32)
 
 
-def bytes_to_limbs(buf: bytes, device, lanes: int | None = None) -> torch.Tensor:
+def bytes_to_limbs(buf, device, lanes: int | None = None) -> torch.Tensor:
     """32-byte little-endian values -> (8, lanes) int32 limb tensor on
-    ``device``, zero padded (``lanes`` defaults to the value count).  The
-    bytes are copied to the device as they are and relaid there: viewed as
-    (N, 8) int32, transposed into the zero tensor.  No Montgomery product:
-    the limbs hold the values."""
-    n = len(buf) // 32
+    ``device``, zero padded (``lanes`` defaults to the value count).
+    ``buf``: ``bytes``, or a 1-D uint8 host tensor (a pinned one crosses by
+    a non-blocking copy: the caller keeps it unchanged until the copy has
+    run).  The bytes are copied to the device as they are and relaid there:
+    viewed as (N, 8) int32, transposed into the zero tensor.  No Montgomery
+    product: the limbs hold the values."""
+    size = buf.numel() if isinstance(buf, torch.Tensor) else len(buf)
+    n = size // 32
     lanes = n if lanes is None else lanes
-    if len(buf) != 32 * n or lanes < n:
-        raise ValueError(f"{len(buf)} bytes: expected 32 a value and at most {lanes} values")
+    if size != 32 * n or lanes < n:
+        raise ValueError(f"{size} bytes: expected 32 a value and at most {lanes} values")
     out = torch.zeros((LIMBS, lanes), dtype=torch.int32, device=device)
     if n:
-        with warnings.catch_warnings():  # a read-only buffer: it is only read, by the copy below
-            warnings.simplefilter("ignore", UserWarning)
-            raw = torch.frombuffer(buf, dtype=torch.int32)
-        out[:, :n] = raw.to(device).view(n, LIMBS).t()
+        staged = isinstance(buf, torch.Tensor)
+        if staged:
+            raw = buf.view(torch.int32)
+        else:
+            with warnings.catch_warnings():  # a read-only buffer: it is only read, by the copy below
+                warnings.simplefilter("ignore", UserWarning)
+                raw = torch.frombuffer(buf, dtype=torch.int32)
+        out[:, :n] = raw.to(device, non_blocking=staged).view(n, LIMBS).t()
     return out
 
 
@@ -257,10 +264,11 @@ class FieldKernels:
         xs = [x % p * self.R % p for x in xs] if mont else [x % p for x in xs]
         return ints_to_limbs_np(xs)
 
-    def pack_bytes(self, buf: bytes, mont: bool = True, lanes: int | None = None) -> torch.Tensor:
+    def pack_bytes(self, buf, mont: bool = True, lanes: int | None = None) -> torch.Tensor:
         """Canonical little-endian 32-byte values (each < p, as
         :func:`..native.ints_to_bytes` and the C++ sparse product make
-        them: K2 takes no other input) -> (8, lanes) limb tensor on this
+        them: K2 takes no other input), as ``bytes`` or a uint8 host tensor
+        (:func:`bytes_to_limbs`) -> (8, lanes) limb tensor on this
         device, zero padded (:func:`bytes_to_limbs`), then into the
         Montgomery domain by :meth:`to_mont` (one K2 launch on the card)
         when ``mont``."""

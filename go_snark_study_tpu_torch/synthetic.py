@@ -5,7 +5,8 @@ Mirrors ``go_snark_study_tpu/synthetic.py``: ``SparseR1CS`` with
 and ``row_evals`` over the C++ sparse matvec (:mod:`.native`; the Python dot
 product gives the same values where the library is not built), and
 ``mul_chain_r1cs``.  The fast prover takes the row evaluations and the
-witness as bytes (``_row_evals_bytes``), never as Python ints.
+witness as bytes, never as Python ints: written into its host buffers
+(``_witness_into``, ``_products_into``) or returned (``_row_evals_bytes``).
 
 Shape of the chain: a multiplication chain  s_{k+1} = s_k * s_{k-1}  (mod r)
 with one public output — every constraint row has O(1) nonzeros, like real
@@ -127,36 +128,43 @@ class SparseR1CS:
             self._csr_cache = csr
         return self._csr_cache
 
-    def _products_native(self, wbytes: bytes):
-        """The three sparse products over Fr in C++ on the witness's bytes,
-        as the library's raw output (32 bytes a row), or None where the
-        library is absent or a coefficient has no signed 64-bit slot."""
-        if not native.available():
-            return None
-        csr = self._csr()
+    def _witness_into(self, w: np.ndarray) -> None:
+        """The witness mod r into ``w``, a writable uint8 array of 32 bytes
+        a signal (:func:`.native.ints_into`)."""
+        native.ints_into(self.witness, FR_MOD, w)
+
+    def _products_into(self, w: np.ndarray, outs) -> None:
+        """The three row evaluations over Fr, from the witness as
+        :meth:`_witness_into` wrote it into ``w``, into ``outs`` (three
+        writable uint8 arrays of 32 bytes a row): the C++ sparse products
+        where the library is there and every coefficient fits its signed
+        64-bit slot, else the Python route's ints encoded; the same bytes."""
+        csr = self._csr() if native.available() else None
         if csr is None:
-            return None
+            for out, v in zip(outs, self._row_evals_python(FR_MOD)):
+                native.ints_into(v, FR_MOD, out)
+            return
         nf = _native_fr()
-        return tuple(nf.sparse_matvec_bytes(indptr, cols, vals, wbytes) for indptr, cols, vals in csr)
+        for (indptr, cols, vals), out in zip(csr, outs):
+            nf.sparse_matvec_into(indptr, cols, vals, w, out)
 
     def _row_evals_native(self):
-        """:meth:`_products_native` decoded to ints, or None."""
-        if not native.available():
+        """The C++ products decoded to ints, or None where they do not run."""
+        if not native.available() or self._csr() is None:
             return None
-        out = self._products_native(native.ints_to_bytes(self.witness, FR_MOD))
-        return None if out is None else tuple(native.ints_from_bytes(b) for b in out)
+        return tuple(native.ints_from_bytes(b) for b in self._row_evals_bytes()[:3])
 
     def _row_evals_bytes(self) -> Tuple[bytes, bytes, bytes, bytes]:
         """(a, b, c, w): the three row evaluations over Fr and the witness
         they share, each value canonical (< r) in 32 little-endian bytes —
-        what the fast prover hands to the device.  The C++ products where
-        :meth:`_products_native` runs, else the Python route's ints
-        encoded: the same bytes."""
-        wbytes = native.ints_to_bytes(self.witness, FR_MOD)
-        out = self._products_native(wbytes)
-        if out is None:
-            out = tuple(native.ints_to_bytes(v, FR_MOD) for v in self._row_evals_python(FR_MOD))
-        return out + (wbytes,)
+        what the fast prover hands to the device, here as ``bytes``
+        (:meth:`_witness_into`, then :meth:`_products_into`; the prover
+        writes them into its staging buffers instead)."""
+        w = np.empty(32 * len(self.witness), dtype=np.uint8)
+        outs = tuple(np.empty(32 * len(rows), dtype=np.uint8) for rows in (self.A, self.B, self.C))
+        self._witness_into(w)
+        self._products_into(w, outs)
+        return tuple(x.tobytes() for x in outs + (w,))
 
 
 def mul_chain_r1cs(n_constraints: int, seed: int = 0) -> SparseR1CS:

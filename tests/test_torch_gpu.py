@@ -293,7 +293,8 @@ def test_spans_in_events_mode_on_card(cuda_device, monkeypatch, tmp_path):
         torch.cuda.synchronize()
     ev = profiling.PROFILER.events()
     by = {e.label: e for e in ev}
-    host_only = {"prove.row_evals", "prove.combine", "msm.combine", "prove.assemble"}
+    host_only = {"prove.row_evals", "prove.row_evals.encode", "prove.row_evals.products", "prove.combine",
+                 "msm.combine", "prove.assemble"}
     assert {"prove", "prove.plans", "prove.msm", "prove.h", "prove.h.ntt", "prove.h.msm",
             "prove.flags"} | host_only <= set(by)
     assert len({e.request for e in ev}) == 1 and by["prove"].parent is None and ev[-1] is by["prove"]
@@ -311,6 +312,49 @@ def test_spans_in_events_mode_on_card(cuda_device, monkeypatch, tmp_path):
                    if e.get("ph") == "X" and e.get("cat") == "user_annotation")
     assert notes == sorted(e.label for e in ev)
     assert verify_proof(setup.vk, proof, r1cs.witness[1 : r1cs.n_public + 1])
+
+
+@pytest.mark.gpu
+def test_staged_inputs_on_card(cuda_device):
+    """Two 2^12 proofs back to back, with different witnesses, through the
+    prover's pinned staging buffers (no fence between them): each verifies,
+    each proof's four device inputs equal the bytes route's
+    (``_row_evals_bytes`` -> ``bytes_to_limbs`` / ``pack_bytes``), and
+    every witness value took the C encoder."""
+    from go_snark_study_tpu_torch import native
+    from go_snark_study_tpu_torch.models.groth16 import verify_proof
+    from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
+    from go_snark_study_tpu_torch.ops.limbs import bytes_to_limbs
+    from go_snark_study_tpu_torch.synthetic import mul_chain_r1cs
+
+    n = 1 << 12
+    systems = [mul_chain_r1cs(n, seed=s) for s in (1, 2)]  # the same rows, two witnesses
+    fast = FastGroth16()
+    setup = fast.setup(systems[0], rng=random.Random(1), materialize_host=False)
+    dpk = setup.pk._device
+    seen = []
+    prove_inputs = fast._prove_inputs
+
+    def record(r1cs, d):
+        before = dict(native.ENCODED)
+        out = prove_inputs(r1cs, d)
+        seen.append((out, {k: native.ENCODED[k] - before[k] for k in before}))
+        return out
+
+    fast._prove_inputs = record
+    proofs = [fast.prove(r1cs, setup.pk, rng=random.Random(3 + i)) for i, r1cs in enumerate(systems)]
+    torch.cuda.synchronize()
+    assert all(b.is_pinned() for st in fast._stagings.values() for b in st.bufs)
+    for r1cs, proof, ((w_limbs, wp_limbs, h_in), routes) in zip(systems, proofs, seen):
+        assert verify_proof(setup.vk, proof, r1cs.witness[1 : r1cs.n_public + 1])
+        a_b, b_b, c_b, w_b = r1cs._row_evals_bytes()
+        want_w = bytes_to_limbs(w_b, cuda_device, dpk.m_pad)
+        m, lo = len(r1cs.witness), dpk.lo
+        assert torch.equal(w_limbs, want_w)
+        assert torch.equal(wp_limbs[:, : m - lo], want_w[:, lo:m]) and not wp_limbs[:, m - lo :].any()
+        assert all(torch.equal(x, fast.Kr.pack_bytes(v, lanes=dpk.n)) for x, v in zip(h_in, (a_b, b_b, c_b)))
+        assert routes["python"] == 0 and routes["native"] == m, routes
+    assert not torch.equal(seen[0][0][0], seen[1][0][0])
 
 
 @pytest.mark.gpu

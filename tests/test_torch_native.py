@@ -6,9 +6,12 @@ route of ``FieldKernels.pack`` (bytes, then a Montgomery product by R^2,
 here K2's plain version), ``scalars_to_limbs`` / ``scalars_to_windows``,
 ``SparseR1CS._row_evals_bytes`` and the prover's input tensors, each bit
 for bit against the JAX package or the Python route on the same seeded
-values.  The cases that need the C++ library skip where it cannot be
-built, as the JAX test does.
+values; the C encoder of ``ints_to_bytes`` / ``ints_into`` and its route
+counter against the Python route.  The cases that need the C++ library
+skip where it cannot be built, as the JAX test does.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -50,6 +53,57 @@ def _vals(p: int, seed: int, n: int = 300):
 def library():
     if not native.available():
         pytest.skip("the native library could not be built here (no make or g++)")
+
+
+def _encode_inputs(name: str):
+    r = C.R
+    if name == "random4096":  # seeded: three in four below r, the rest anywhere in (-2^260, 2^260)
+        rng = np.random.default_rng(11)
+        words = rng.integers(0, 2**63, size=(4096, 5), dtype=np.int64)
+        xs = [int(sum(int(w) << (63 * k) for k, w in enumerate(row))) for row in words]
+        return [x % r if i % 4 else x % (2**261) - 2**260 for i, x in enumerate(xs)]
+    return {"zero": [0], "one": [1], "r-1": [r - 1], "r": [r], "r+1": [r + 1], "2^256-1": [2**256 - 1],
+            "2^300": [2**300], "minus-one": [-1], "bool": [True], "numpy-int64": [np.int64(5)], "empty": [],
+            "tuple": (r - 1, 2, r + 3, -5, 0), "no-library": [0, 7, r - 1, r, -1, True]}[name]
+
+
+ENCODE_CASES = ["zero", "one", "r-1", "r", "r+1", "2^256-1", "2^300", "minus-one", "bool", "numpy-int64", "empty",
+                "tuple", "random4096", "no-library"]
+
+
+@pytest.mark.parametrize("name", ENCODE_CASES)
+def test_encoder_is_the_python_route(monkeypatch, name):
+    """``ints_to_bytes`` and ``ints_into`` (the C encoder, then the Python
+    route item by item for what is not an exact int in [0, r)) against the
+    Python route alone, byte for byte or by the same exception, and the
+    route counter: each value once, under the route it took.  With the
+    encoder's library gone every value takes the Python route."""
+    xs = _encode_inputs(name)
+    if name == "no-library":
+        monkeypatch.setattr(native, "_load_pyints", lambda: False)
+    try:
+        want = b"".join((x % C.R).to_bytes(32, "little") for x in xs)
+    except OverflowError as e:  # a numpy integer: x % r has no int64 result
+        want = e
+    on = name != "no-library" and bool(native._load_pyints())  # the library builds wherever a C compiler is
+    native_n = sum(type(x) is int and 0 <= x < C.R for x in xs) if on else 0
+    for route in ("bytes", "into"):
+        before = dict(native.ENCODED)
+        if isinstance(want, Exception):
+            with pytest.raises(type(want), match=re.escape(str(want))):
+                native.ints_to_bytes(xs, C.R) if route == "bytes" else \
+                    native.ints_into(xs, C.R, np.empty(32 * len(xs), np.uint8))
+            assert native.ENCODED == before
+            continue
+        if route == "bytes":
+            got = native.ints_to_bytes(xs, C.R)
+        else:
+            buf = np.full(32 * len(xs), 0xA5, np.uint8)
+            native.ints_into(xs, C.R, buf)
+            got = buf.tobytes()
+        assert type(got) is bytes and got == want, route
+        assert native.ENCODED["native"] - before["native"] == native_n, route
+        assert native.ENCODED["python"] - before["python"] == len(xs) - native_n, route
 
 
 @pytest.mark.parametrize("field,mont", CASES, ids=IDS)
