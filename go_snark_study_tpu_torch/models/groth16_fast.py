@@ -31,8 +31,9 @@ enqueues the G1, G2 and H sides in that order on one stream.  With
 ``GOSNARK_MSM_PROFILE`` on (``1`` fenced, ``events`` unfenced:
 :mod:`..profiling`), each proof is a ``prove`` span whose children time the
 prover's phases (``prove.*``: ``prove.h`` is the H pipeline
-``prove.h.ntt`` and the H MSM ``prove.h.msm``), and so are the setup's host
-loops and its device commits (``setup.*``).
+``prove.h.ntt`` and the H MSM ``prove.h.msm``; each complete-formula
+re-run is a ``prove.rerun`` under ``prove.flags``), and so are the setup's
+host loops and its device commits (``setup.*``).
 """
 
 from __future__ import annotations
@@ -115,6 +116,9 @@ class FastGroth16:
         self._sharded_provers: dict = {}
         self._h_progs: dict = {}
         self._stagings: dict = {}
+        # degeneracy re-runs inside proofs, by MSM: at, b1 and cd (C's
+        # private part) in G1, h (the H MSM) in G1, b2 in G2
+        self.rerun_counts = dict.fromkeys(("at", "b1", "cd", "h", "b2"), 0)
 
     # -- fixed-base engines (their host tables are built on first use) --
     @property
@@ -543,22 +547,24 @@ class FastGroth16:
             with span("prove.h.msm", dv):
                 s_h = self.msm_g1.window_sums_eager(dpk.ptau, h_digits, c_h)
 
-        # degeneracy-flag check: incomplete-formula MSMs re-run through the
-        # complete-engine twin if their flag fired (cryptographically never
-        # for honest keys; exact always)
-        def chk(eng, sf, pts, limbs, c, plans=None):
+        # degeneracy-flag check: an incomplete-formula MSM whose flag fired
+        # runs again on the complete-engine twin (exact always), counted by
+        # MSM in ``rerun_counts`` and spanned ``prove.rerun``
+        def chk(key, eng, sf, pts, limbs, c, plans=None):
             sums, bad = sf
             if bool(bad):
                 eng.fallback_hits += 1
-                sums, _ = eng.fallback_engine().window_sums_eager(pts, limbs, c, plans)
+                self.rerun_counts[key] += 1
+                with span("prove.rerun", dv):
+                    sums, _ = eng.fallback_engine().window_sums_eager(pts, limbs, c, plans)
             return sums
 
         with span("prove.flags", dv):
-            s_at = chk(self.msm_g1, s_at, dpk.at, w_limbs, c_m, plans_w)
-            s_b1 = chk(self.msm_g1, s_b1, dpk.b1, w_limbs, c_m, plans_w)
-            s_cd = chk(self.msm_g1, s_cd, dpk.cdelta, wp_limbs, c_p)
-            s_h = chk(self.msm_g1, s_h, dpk.ptau, h_digits, c_h)
-            sums_b2 = chk(self.msm_g2, s_b2, dpk.b2, w_limbs, c_m2, plans_w2)
+            s_at = chk("at", self.msm_g1, s_at, dpk.at, w_limbs, c_m, plans_w)
+            s_b1 = chk("b1", self.msm_g1, s_b1, dpk.b1, w_limbs, c_m, plans_w)
+            s_cd = chk("cd", self.msm_g1, s_cd, dpk.cdelta, wp_limbs, c_p)
+            s_h = chk("h", self.msm_g1, s_h, dpk.ptau, h_digits, c_h)
+            sums_b2 = chk("b2", self.msm_g2, s_b2, dpk.b2, w_limbs, c_m2, plans_w2)
 
         with span("prove.combine"):
             comb1 = lambda sums, c: combine_window_sums(g1, self.g1b.unpack(sums), c)

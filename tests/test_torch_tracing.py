@@ -231,3 +231,40 @@ def test_msm_flags_and_combine_spans(prof, monkeypatch):
     assert [e.label for e in ev] == ["msm.flags", "msm.combine", "msm.combine", "prove.combine"]
     assert ev[0].parent is None and ev[1].parent is None
     assert ev[2].parent == ev[3].span_id and ev[2].request == ev[3].request
+
+
+def test_prove_rerun_span_and_counts(prof, monkeypatch):
+    """A flag forced on one MSM of a proof (C's private MSM): one
+    ``prove.rerun`` under ``prove.flags``, and ``rerun_counts`` bumped for
+    that MSM only; with the spans off the count moves all the same and
+    nothing is recorded."""
+    import random
+
+    from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
+    from go_snark_study_tpu_torch.synthetic import mul_chain_r1cs
+
+    fast = FastGroth16(device="cpu")
+    r1cs = mul_chain_r1cs(8, seed=1)
+    pk = fast.setup(r1cs, rng=random.Random(3), materialize_host=False).pk
+    target = pk._device.cdelta
+    orig = msm.MSMEngine.window_sums_eager
+
+    def forced(self, pts, limbs, c, plans=None):
+        sums, _ = orig(self, pts, limbs, c, plans)
+        return sums, torch.tensor(pts is target and not self.complete)
+
+    monkeypatch.setattr(msm.MSMEngine, "window_sums_eager", forced)
+    monkeypatch.setenv(profiling.MODE_VAR, "events")
+    fast.prove(r1cs, pk, rng=random.Random(4))
+    ev = prof.events()
+    reruns = [e for e in ev if e.label == "prove.rerun"]
+    (flags,) = [e for e in ev if e.label == "prove.flags"]
+    assert len(reruns) == 1 and reruns[0].parent == flags.span_id
+    assert fast.rerun_counts == {"at": 0, "b1": 0, "cd": 1, "h": 0, "b2": 0}
+
+    prof.reset()
+    monkeypatch.setenv(profiling.MODE_VAR, "0")
+    fast.prove(r1cs, pk, rng=random.Random(5))
+    assert prof.events() == [] and not prof.calls
+    assert fast.rerun_counts == {"at": 0, "b1": 0, "cd": 2, "h": 0, "b2": 0}
+    assert fast.msm_g1.fallback_hits == 2 and fast.msm_g2.fallback_hits == 0
