@@ -21,7 +21,11 @@ Phases:
            at 2^12 and 2^13 with its cluster launch beside the stage path
            it replaced (the stage loop over K4's stage form, on the card);
            K4's stage form; NTTEngine._transform on 2 rows of 2^14 and 1 row of
-           2^15 (the four-step form) against the plain radix-2 loop.  Each
+           2^15 (the four-step form) against the plain radix-2 loop; the
+           prover's SpMV (ops/r1cs_spmv.py) at the 2^20 SHA-256 shape (the
+           benchmark's 1,984-byte circuit) against the host C++ products
+           entered by K2, the route it replaced, and against its plain
+           version, with the seconds that building its rows takes.  Each
            row gives the device
            time per launch from torch.profiler's device events ("device",
            the "ms" of the JSON line), the CUDA-event time of a loop of
@@ -29,7 +33,8 @@ Phases:
            plain version's time and the bound.
   main     the port's main path at 2^16 constraints: FastGroth16 setup, two
            proofs (the second timed), verification, and a wrong public that
-           must fail.  Every K1 form, K2 and K3 must have launched on it, and
+           must fail.  Every K1 form, K2, K3 and the SpMV must have launched
+           on it, the SpMV once a prove, and
            K1 at most 80 times in one prove (printed by form, K3 beside it);
            a third prove runs under the profiler.
   small    the 2^12-constraint path (radix-2 NTT), as main: setup, two
@@ -202,6 +207,7 @@ K4_LANES = 1 << 11  # K4 stage form: one radix-2 stage at 2^12
 K4_MAX_LOG = 13  # K4 whole-transform form: every n from 2 to 2^13
 K4_SITES = (12, 13)  # timed: the 2^12 path's transforms, and the largest
 K4_PER_PROVE = 7  # radix-2 transforms per prove below 2^14 (groth16_fast._h_pipeline)
+SPMV_MESSAGE_BYTES = 1984  # the SpMV's check: the benchmark's SHA-256 circuit, 1,018,304 rows, domain 2^20
 # K1's MSM forms at the 2^16 shapes: c = 11 gives 24 windows (one group),
 # m_pad = 67,584 points = K 33 x m 2048, p_cap 3200, 1088 buckets = Q 17 x D 64
 MSM_C, MSM_POINTS = 11, 67584
@@ -468,6 +474,69 @@ def check_kernels(torch, clock_hz, rows, card):
     say("K4", f"stage form (butterfly) {n} lanes", t, card)
     check_k4(torch, clock_hz, rows, card, gen)
     check_long_rows(torch, card, gen)
+    check_spmv(torch, clock_hz, rows, card)
+
+
+def check_spmv(torch, clock_hz, rows, card):
+    """The prover's SpMV at the 2^20 SHA-256 shape: circomlib's SHA-256 over
+    SPMV_MESSAGE_BYTES, the witness of a seeded message.  The kernel, on the
+    witness rows as the prover copies them, against the route it replaced
+    (the host C++ products, ``SparseR1CS._products_into``, each entered by
+    ``FieldKernels.pack_bytes``) and against its plain version on the card,
+    bit for bit.  Prints the rows' build seconds (``SparseR1CS._csr`` and
+    the rest of ``row_csr``), the host products' seconds, device ms a
+    launch beside the bound (``RowCSR.cost``), the plain version's ms and
+    the launches a call."""
+    import numpy as np
+
+    from go_snark_study_tpu_torch import native
+    from go_snark_study_tpu_torch.bn128 import constants as C
+    from go_snark_study_tpu_torch.circuits import sha256
+    from go_snark_study_tpu_torch.models.groth16_fast import _next_pow2
+    from go_snark_study_tpu_torch.ops import r1cs_spmv as sp
+    from go_snark_study_tpu_torch.ops.limbs import FieldKernels, bytes_to_rows
+
+    assert native.available(), "the C++ host runtime (native/libgosnark_native.so) is not built"
+    t0 = time.perf_counter()
+    r1cs = sha256.sha256_r1cs(SPMV_MESSAGE_BYTES)
+    r1cs.witness = sha256.witness(r1cs, random.Random(21).randbytes(SPMV_MESSAGE_BYTES))
+    t_circuit = time.perf_counter() - t0
+    n = _next_pow2(r1cs.n_constraints)
+    torch.zeros(1, device=DEVICE)  # the CUDA context, before the clocks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r1cs._csr()
+    t_host_csr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr = sp.row_csr(r1cs, n, DEVICE)
+    torch.cuda.synchronize()
+    t_rows = time.perf_counter() - t0
+    w = np.empty(32 * len(r1cs.witness), dtype=np.uint8)
+    outs = tuple(np.empty(32 * len(rs), dtype=np.uint8) for rs in (r1cs.A, r1cs.B, r1cs.C))
+    r1cs._witness_into(w)
+    t0 = time.perf_counter()
+    r1cs._products_into(w, outs)
+    t_host = time.perf_counter() - t0
+    Kr = FieldKernels(C.R, DEVICE)
+    want = torch.stack([Kr.pack_bytes(o.tobytes(), lanes=n) for o in outs])
+    w_rows = bytes_to_rows(torch.from_numpy(w), DEVICE)
+    got = sp.r1cs_spmv(csr, w_rows)
+    err = max_abs_err(torch, got, want)
+    assert torch.equal(got, want), f"SpMV: kernel != the host products (max abs err {err})"
+    assert torch.equal(got, sp.r1cs_spmv_plain(csr, w_rows)), "SpMV: kernel != plain"
+    t = timed(torch, lambda: sp.r1cs_spmv(csr, w_rows), lambda: sp.r1cs_spmv_plain(csr, w_rows), 50,
+              ("r1cs_spmv_kernel",), 1)
+    cost = csr.cost()
+    bnd, by = bound_ms(cost["bytes"], cost["int32_ops"], clock_hz)
+    lens = torch.diff(csr.indptr)
+    shape = (f"SHA-256 {SPMV_MESSAGE_BYTES} bytes: 3 x {n} rows, {csr.cols.numel()} non-zeros, "
+             f"{csr.long_rows.numel()} rows of more than {sp.WARP}, {csr.table.shape[0]} table entries")
+    rows["SpMV"] = dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by, shape=shape, products=cost["products"],
+                        bytes=cost["bytes"], longest_row=int(lens.max()), circuit_s=t_circuit,
+                        host_csr_s=t_host_csr, row_csr_s=t_rows, host_products_s=t_host)
+    say("SpMV", f"{shape}, bound {bnd:.4f} ms ({by}); rows built in {t_host_csr:.2f} s (_csr) + {t_rows:.2f} s "
+        f"(row_csr); the host products took {t_host:.3f} s", t, card)
+    print(json.dumps({"spmv": {k: v for k, v in rows["SpMV"].items()}}))
 
 
 def check_long_rows(torch, card, gen):
@@ -743,7 +812,7 @@ def profile_prove(torch, fast, r1cs, pk, rng, tag: str, card: str):
     events = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU and dev(e) > 0]
     busy_us = sum(dev(e) for e in events)
     names = ("point_add_kernel", "msm_", "mont_mul_kernel", "small_ntt_kernel", "radix2_ntt_kernel",
-             "butterfly_kernel")
+             "butterfly_kernel", "r1cs_spmv_kernel")
     ours = sum(dev(e) for e in events if any(k in e.key for k in names))
     k1 = {}
     for e in events:
@@ -751,7 +820,7 @@ def profile_prove(torch, fast, r1cs, pk, rng, tag: str, card: str):
             if k in e.key:
                 k1[k] = k1.get(k, 0.0) + dev(e) / 1e3
     print(f"[{tag}] profiled prove: wall {wall:.3f} s, device busy {busy_us / 1e6:.4f} s "
-          f"({100 * busy_us / 1e6 / wall:.1f}% of wall), of which K1-K4 {ours / 1e6:.4f} s; "
+          f"({100 * busy_us / 1e6 / wall:.1f}% of wall), of which the port's kernels {ours / 1e6:.4f} s; "
           f"{sum(e.count for e in events)} device launches of {len(events)} kinds  ({card})")
     print(f"[{tag}] K1 device ms in the profiled prove by kernel: "
           f"{json.dumps({k: round(v, 4) for k, v in k1.items()})}  ({card})")
@@ -976,7 +1045,7 @@ def run_dsl(torch, card: str, main_path, route: dict):
             fast.prove(r1cs, pk, rng=rng)
             torch.cuda.synchronize()
             turns[which].append(time.perf_counter() - t0)
-    print(f"[{tag}] prove s in turns by row_evals route (python, native, native, python): {json.dumps(turns)}  "
+    print(f"[{tag}] prove s in turns by the witness encoder's route (python, native, native, python): {json.dumps(turns)}  "
           f"({card})")
     line = dict(card=card, constraints=r1cs.n_constraints, signals=r1cs.n_signals, **route,
                 parse_s=t_parse, witness_s=t_witness, from_circuit_s=t_sparse,
@@ -1320,7 +1389,7 @@ def k3_per_prove(n: int) -> int:
 
 def k2_per_prove(n: int) -> int:
     """K2 launches in one prove at domain n when no flag fires, from the
-    code: each H input's Montgomery entry (FieldKernels.pack_bytes, 3);
+    code (the H inputs enter the Montgomery domain in the SpMV, no K2):
     the H pipeline's own products (groth16_fast._h_pipeline: four 1/n
     scales, four coset shifts, the coset product, the 1/Z scale, the
     Montgomery exit: 11); the twiddle products of its seven transforms
@@ -1335,7 +1404,7 @@ def k2_per_prove(n: int) -> int:
     if n >= NTTEngine.FOURSTEP_MIN:
         n1, n2 = NTTEngine.split(n)
         per_transform = levels(n1) + levels(n2) + 1
-    return 3 + 11 + 7 * per_transform + 18
+    return 11 + 7 * per_transform + 18
 
 
 def k1_per_prove(fast, dpk):
@@ -1560,9 +1629,9 @@ def ladder_tier(torch, fast, log_n: int, card: str, phase: str = "ladder") -> di
 
 def ladder_bridge(torch, fast, tier: dict, card: str) -> dict:
     """The host bridge on the 2^20 prove's own inputs (after the counts are
-    read).  The card route: ``FastGroth16._prove_inputs`` (the witness and
-    the C++ products cross as bytes, relaid on the card; each H input into
-    Montgomery form by one K2 product) and ``scalars_to_windows`` of the
+    read).  The card route: ``FastGroth16._prove_inputs`` (the witness
+    crosses as bytes, relaid on the card; the H inputs from the SpMV on the
+    card, in Montgomery form) and ``scalars_to_windows`` of the
     setup's ptau commit vector (the powers-of-tau ladder from the setup's
     toxic waste).  The Python route: the same values as Python ints, the
     Montgomery form taken on the host (``FieldKernels.pack_python``,
@@ -2315,8 +2384,9 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         paths["main"] = run_path(torch, f"2^{MAIN_LOG}", mul_chain_r1cs(1 << MAIN_LOG, seed=1), 7, True, card)
         main_path = paths["main"]
-        for k in K1_FORMS + ("K2", "K3"):
+        for k in K1_FORMS + ("K2", "K3", "SpMV"):
             assert main_path["counts"][k] > 0, f"{k} not launched on the 2^{MAIN_LOG} path"
+        assert main_path["prove_counts"]["SpMV"] == 1, f"SpMV launched {main_path['prove_counts']['SpMV']} times"
         k1_per_prove = sum(main_path["prove_counts"][k] for k in K1_FORMS)
         assert k1_per_prove <= 80, f"K1 launched {k1_per_prove} times in one 2^{MAIN_LOG} prove"
         phase_s["main"] = time.perf_counter() - t_phase

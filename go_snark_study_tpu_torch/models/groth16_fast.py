@@ -9,9 +9,11 @@ Mirrors ``go_snark_study_tpu/models/groth16_fast.py`` (``FastGroth16``,
     values, commits with the fixed-base engine (K1 adds), and keeps the
     proving key ON DEVICE, affine-normalised (one tree batch inversion on
     K2), so every proof MSM runs mixed adds;
-  * prove hands the witness and the three row evaluations to the device
-    as bytes, written on the host into pinned staging buffers that the
-    prover keeps and copied without blocking (``_prove_inputs``), builds
+  * prove hands the witness to the device as bytes, written on the host
+    into a pinned staging buffer that the prover keeps and copied without
+    blocking, and computes the three row evaluations there, with the
+    system's rows kept on the device since its first proof (the SpMV,
+    :mod:`..ops.r1cs_spmv`; ``_prove_inputs``), builds
     one signed-digit sort plan shared by the three same-witness MSMs (G2
     included), runs four G1 MSMs and one G2 MSM (K1), each with its
     degeneracy flag and complete-formula re-run, builds H(x) with the
@@ -48,9 +50,10 @@ from .. import _build
 from ..bn128 import constants as C
 from ..ops.curve_ops import G1Batch, G2Batch, tree_map
 from ..ops.fixed_base import FixedBaseEngine
-from ..ops.limbs import LIMBS, FieldKernels, bytes_to_limbs, resolve_device
+from ..ops.limbs import LIMBS, FieldKernels, bytes_to_rows, resolve_device, rows_to_limbs
 from ..ops.msm import MSMEngine, combine_window_sums, scalars_to_windows
 from ..ops.ntt import NTTEngine
+from ..ops.r1cs_spmv import r1cs_spmv, row_csr
 from ..profiling import span
 from ..synthetic import SparseR1CS
 from .context import ProtocolContext, default_context
@@ -87,10 +90,10 @@ class DevicePk:
 
 @dataclass
 class _Staging:
-    """One shape's host buffers (witness, a, b, c) and the event recorded
-    after the last copies out of them."""
+    """One witness length's host buffer and the event recorded after the
+    last copy out of it."""
 
-    bufs: tuple
+    buf: torch.Tensor
     copied: Optional[object] = None  # torch.cuda.Event
 
 
@@ -119,6 +122,9 @@ class FastGroth16:
         # degeneracy re-runs inside proofs, by MSM: at, b1 and cd (C's
         # private part) in G1, h (the H MSM) in G1, b2 in G2
         self.rerun_counts = dict.fromkeys(("at", "b1", "cd", "h", "b2"), 0)
+        # proofs whose three sparse products ran on the card (the SpMV
+        # kernel) or on the host (its plain version, on the CPU)
+        self.product_routes = {"card": 0, "host": 0}
 
     # -- fixed-base engines (their host tables are built on first use) --
     @property
@@ -435,17 +441,15 @@ class FastGroth16:
         self._h_progs[key] = h_digits
         return h_digits
 
-    def _staging(self, m: int, n_rows: int):
-        """The host buffers of an (m signals, n_rows constraints) shape,
-        uint8, 32 bytes a value: witness, a, b, c; pinned on a CUDA device.
-        One set a shape, kept; before handing it out again this waits for
-        the copies of the proof that last filled it (a CUDA event), so that
-        no proof in flight has its inputs overwritten."""
-        st = self._stagings.get((m, n_rows))
+    def _staging(self, m: int):
+        """The host buffer of an m-signal witness, uint8, 32 bytes a value,
+        pinned on a CUDA device.  One a length, kept; before handing it out
+        again this waits for the copy of the proof that last filled it (a
+        CUDA event), so that no proof in flight has its input overwritten."""
+        st = self._stagings.get(m)
         if st is None:
-            pin = self.device.type == "cuda"
-            bufs = tuple(torch.empty(32 * k, dtype=torch.uint8, pin_memory=pin) for k in (m, n_rows, n_rows, n_rows))
-            st = self._stagings[(m, n_rows)] = _Staging(bufs)
+            st = self._stagings[m] = _Staging(torch.empty(32 * m, dtype=torch.uint8,
+                                                          pin_memory=self.device.type == "cuda"))
         elif st.copied is not None:
             st.copied.synchronize()
         return st
@@ -455,30 +459,33 @@ class FastGroth16:
         wp_limbs (8, mp_pad), the witness and its private part as plain
         limbs, the MSM digit source; (a, b, c) (8, n), the row evaluations
         in Montgomery form, the H pipeline's inputs).  The witness is
-        encoded and the three products written straight into the shape's
-        staging buffers (:meth:`_staging`; ``SparseR1CS._witness_into``,
-        ``_products_into``), which cross once each by a non-blocking copy;
-        ``wp_limbs`` is a slice of ``w_limbs`` on the device, and each H
-        input enters the Montgomery domain by one K2 product
-        (``FieldKernels.pack_bytes``)."""
+        encoded straight into its staging buffer (:meth:`_staging`;
+        ``SparseR1CS._witness_into``), crosses once by a non-blocking copy
+        and is relaid there; ``wp_limbs`` is a slice of ``w_limbs`` on the
+        device.  The three products are one SpMV over the system's rows
+        (:func:`..ops.r1cs_spmv.r1cs_spmv`: the kernel on the card, its
+        plain version on the CPU), on the witness as it crossed; the rows
+        go to the device at the system's first proof and stay there
+        (:func:`..ops.r1cs_spmv.row_csr`).  ``product_routes`` counts the
+        proof by where its products ran."""
         dv = self.device
+        csr = row_csr(r1cs, dpk.n, dv)
         with span("prove.row_evals"):
-            st = self._staging(len(r1cs.witness), len(r1cs.A))
-            w_h, a_h, b_h, c_h = st.bufs
-            with span("prove.row_evals.encode"):
-                r1cs._witness_into(w_h.numpy())
-            with span("prove.row_evals.products"):
-                r1cs._products_into(w_h.numpy(), (a_h.numpy(), b_h.numpy(), c_h.numpy()))
+            st = self._staging(len(r1cs.witness))
+            r1cs._witness_into(st.buf.numpy())
         with span("prove.witness", dv):
-            w_limbs = bytes_to_limbs(w_h, dv, dpk.m_pad)
-            m, lo = w_h.numel() // 32, dpk.lo
-            wp_limbs = w_limbs.new_zeros((LIMBS, dpk.mp_pad))
-            wp_limbs[:, : m - lo] = w_limbs[:, lo:m]
-        with span("prove.h_inputs", dv):
-            h_in = tuple(self.Kr.pack_bytes(v, lanes=dpk.n) for v in (a_h, b_h, c_h))
+            w_rows = bytes_to_rows(st.buf, dv)
             if dv.type == "cuda":
                 st.copied = torch.cuda.Event()
                 st.copied.record()
+            w_limbs = rows_to_limbs(w_rows, dpk.m_pad)
+            m, lo = w_rows.shape[0], dpk.lo
+            wp_limbs = w_limbs.new_zeros((LIMBS, dpk.mp_pad))
+            wp_limbs[:, : m - lo] = w_limbs[:, lo:m]
+        with span("prove.h_inputs", dv):
+            with span("prove.h_inputs.products", dv):
+                h_in = tuple(r1cs_spmv(csr, w_rows))
+            self.product_routes["card" if dv.type == "cuda" else "host"] += 1
         return w_limbs, wp_limbs, h_in
 
     # ------------------------------------------------------------------

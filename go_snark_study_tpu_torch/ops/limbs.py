@@ -24,9 +24,11 @@ is axis 0.
 Host bridge (the JAX package's ``pack``/``unpack`` over its C++ runtime):
 values cross to the device as canonical little-endian 32-byte values
 (:func:`..native.ints_to_bytes`, or the C++ sparse product's output; the
-prover's pinned staging buffers), one copy, relaid into limbs on the device
+prover's pinned staging buffer), one copy, relaid into limbs on the device
 (:func:`bytes_to_limbs`), and enter the Montgomery domain there by one
-product by R^2 (:meth:`FieldKernels.to_mont`, K2 on the card).  The host's Python Montgomery conversion
+product by R^2 (:meth:`FieldKernels.to_mont`, K2 on the card).  The
+prover's witness keeps its rows as they crossed (:func:`bytes_to_rows`)
+for the SpMV (:mod:`.r1cs_spmv`).  The host's Python Montgomery conversion
 (:meth:`FieldKernels.pack_python`) is the bridge's plain version.
 """
 
@@ -41,7 +43,8 @@ import torch
 from .. import native
 from . import mont_mul as _mm
 
-__all__ = ["LIMBS", "LIMB_BITS", "FieldKernels", "U64Field", "resolve_device", "bytes_to_limbs"]
+__all__ = ["LIMBS", "LIMB_BITS", "FieldKernels", "U64Field", "resolve_device", "bytes_to_limbs", "bytes_to_rows",
+           "rows_to_limbs"]
 
 LIMBS = 8
 LIMB_BITS = 32
@@ -68,30 +71,47 @@ def ints_to_limbs_np(xs: Sequence[int]) -> np.ndarray:
     return np.array(arr.T, order="C").view(np.int32)
 
 
+def bytes_to_rows(buf, device) -> torch.Tensor:
+    """32-byte little-endian values -> (N, 8) int32 on ``device``, a value a
+    row: the bytes as they are, one copy.  ``buf``: ``bytes``, or a 1-D
+    uint8 host tensor (a pinned one crosses by a non-blocking copy: the
+    caller keeps it unchanged until the copy has run; on the CPU the rows
+    are a view of it)."""
+    size = buf.numel() if isinstance(buf, torch.Tensor) else len(buf)
+    if size % 32:
+        raise ValueError(f"{size} bytes: expected 32 a value")
+    staged = isinstance(buf, torch.Tensor)
+    if staged:
+        raw = buf.view(torch.int32)
+    elif size:
+        with warnings.catch_warnings():  # a read-only buffer: it is only read
+            warnings.simplefilter("ignore", UserWarning)
+            raw = torch.frombuffer(buf, dtype=torch.int32)
+    else:
+        raw = torch.zeros(0, dtype=torch.int32)
+    return raw.to(device, non_blocking=staged).view(-1, LIMBS)
+
+
+def rows_to_limbs(rows: torch.Tensor, lanes: int | None = None) -> torch.Tensor:
+    """(N, 8) value rows -> the (8, lanes) limb tensor on their device, zero
+    padded (``lanes`` defaults to N): the rows transposed into the zero
+    tensor."""
+    n = rows.shape[0]
+    lanes = n if lanes is None else lanes
+    if lanes < n:
+        raise ValueError(f"{n} values: expected at most {lanes}")
+    out = torch.zeros((LIMBS, lanes), dtype=torch.int32, device=rows.device)
+    out[:, :n] = rows.t()
+    return out
+
+
 def bytes_to_limbs(buf, device, lanes: int | None = None) -> torch.Tensor:
     """32-byte little-endian values -> (8, lanes) int32 limb tensor on
-    ``device``, zero padded (``lanes`` defaults to the value count).
-    ``buf``: ``bytes``, or a 1-D uint8 host tensor (a pinned one crosses by
-    a non-blocking copy: the caller keeps it unchanged until the copy has
-    run).  The bytes are copied to the device as they are and relaid there:
-    viewed as (N, 8) int32, transposed into the zero tensor.  No Montgomery
-    product: the limbs hold the values."""
-    size = buf.numel() if isinstance(buf, torch.Tensor) else len(buf)
-    n = size // 32
-    lanes = n if lanes is None else lanes
-    if size != 32 * n or lanes < n:
-        raise ValueError(f"{size} bytes: expected 32 a value and at most {lanes} values")
-    out = torch.zeros((LIMBS, lanes), dtype=torch.int32, device=device)
-    if n:
-        staged = isinstance(buf, torch.Tensor)
-        if staged:
-            raw = buf.view(torch.int32)
-        else:
-            with warnings.catch_warnings():  # a read-only buffer: it is only read, by the copy below
-                warnings.simplefilter("ignore", UserWarning)
-                raw = torch.frombuffer(buf, dtype=torch.int32)
-        out[:, :n] = raw.to(device, non_blocking=staged).view(n, LIMBS).t()
-    return out
+    ``device``, zero padded (``lanes`` defaults to the value count): the
+    bytes copied to the device as they are (:func:`bytes_to_rows`) and
+    relaid there (:func:`rows_to_limbs`).  No Montgomery product: the limbs
+    hold the values."""
+    return rows_to_limbs(bytes_to_rows(buf, device), lanes)
 
 
 def limbs_np_to_ints(arr: np.ndarray) -> List[int]:

@@ -162,14 +162,16 @@ def kernel_cost(kind: str, n: int, group: int = 1, g: int = 16) -> dict:
 def kernel_objects() -> dict:
     """Every kernel of the port by its short name: K1's per-lane form and
     its three MSM forms, K2, K3, K4's whole-transform form and its stage
-    form (each a ``_build.Kernel`` with a ``launches`` count)."""
+    form, and the prover's sparse products (``SpMV``, which replaces no TPU
+    kernel); each a ``_build.Kernel`` with a ``launches`` count."""
     from .ops.mont_mul import MONT_MUL
     from .ops.msm_kernels import APPLY, REDUCE, SEG_SCAN
     from .ops.ntt_kernels import BUTTERFLY, RADIX2_NTT, SMALL_NTT
     from .ops.point_add import POINT_ADD
+    from .ops.r1cs_spmv import SPMV
 
     return {"K1": POINT_ADD, "K1 apply": APPLY, "K1 seg-scan": SEG_SCAN, "K1 reduce": REDUCE,
-            "K2": MONT_MUL, "K3": SMALL_NTT, "K4": RADIX2_NTT, "K4 stage": BUTTERFLY}
+            "K2": MONT_MUL, "K3": SMALL_NTT, "K4": RADIX2_NTT, "K4 stage": BUTTERFLY, "SpMV": SPMV}
 
 
 def reset_counts() -> None:

@@ -4,9 +4,11 @@ Mirrors ``go_snark_study_tpu/synthetic.py``: ``SparseR1CS`` with
 ``from_circuit`` (the bridge from a DSL-compiled circuit to the fast prover)
 and ``row_evals`` over the C++ sparse matvec (:mod:`.native`; the Python dot
 product gives the same values where the library is not built), and
-``mul_chain_r1cs``.  The fast prover takes the row evaluations and the
-witness as bytes, never as Python ints: written into its host buffers
-(``_witness_into``, ``_products_into``) or returned (``_row_evals_bytes``).
+``mul_chain_r1cs``.  The fast prover takes the witness as bytes, never as
+Python ints, written into its host buffer (``_witness_into``), and computes
+the row evaluations on the device (:mod:`.ops.r1cs_spmv`); the host
+products (``_products_into``, or returned as bytes by ``_row_evals_bytes``)
+are its reference.
 
 Shape of the chain: a multiplication chain  s_{k+1} = s_k * s_{k-1}  (mod r)
 with one public output — every constraint row has O(1) nonzeros, like real
@@ -156,10 +158,9 @@ class SparseR1CS:
 
     def _row_evals_bytes(self) -> Tuple[bytes, bytes, bytes, bytes]:
         """(a, b, c, w): the three row evaluations over Fr and the witness
-        they share, each value canonical (< r) in 32 little-endian bytes —
-        what the fast prover hands to the device, here as ``bytes``
-        (:meth:`_witness_into`, then :meth:`_products_into`; the prover
-        writes them into its staging buffers instead)."""
+        they share, each value canonical (< r) in 32 little-endian bytes,
+        as ``bytes`` (:meth:`_witness_into`, then :meth:`_products_into`):
+        the host route that the prover's SpMV is held to."""
         w = np.empty(32 * len(self.witness), dtype=np.uint8)
         outs = tuple(np.empty(32 * len(rows), dtype=np.uint8) for rows in (self.A, self.B, self.C))
         self._witness_into(w)

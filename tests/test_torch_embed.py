@@ -234,7 +234,8 @@ def test_profiling_block_restores_the_variable(monkeypatch, earlier):
 
 def test_launch_count_registry():
     """profiling.kernel_objects names every kernel of the port once, with
-    its source and the TPU kernel it replaces; reset_counts zeroes every
+    its source and the TPU kernel it replaces (the SpMV replaces none: the
+    host products it took over); reset_counts zeroes every
     count (K1's per-instance ones too) and launch_counts reads them.  A CPU
     tensor takes the plain version, which counts nothing."""
     from go_snark_study_tpu_torch import profiling
@@ -242,11 +243,12 @@ def test_launch_count_registry():
     from go_snark_study_tpu_torch.ops import mont_mul as mm, point_add as pa
 
     objs = profiling.kernel_objects()
-    assert list(objs) == ["K1", "K1 apply", "K1 seg-scan", "K1 reduce", "K2", "K3", "K4", "K4 stage"]
+    assert list(objs) == ["K1", "K1 apply", "K1 seg-scan", "K1 reduce", "K2", "K3", "K4", "K4 stage", "SpMV"]
     assert len({id(k) for k in objs.values()}) == len(objs)
-    for k in objs.values():
+    for name, k in objs.items():
         assert os.path.exists(os.path.join(REPO, k.source_path))
-        assert k.replaces.startswith("go_snark_study_tpu/ops/pallas_"), k.replaces
+        pallas = "go_snark_study_tpu/ops/pallas_"
+        assert k.replaces.startswith("none: native/" if name == "SpMV" else pallas), k.replaces
     objs["K2"].launches = 3
     pa.INSTANCE_LAUNCHES[("jadd", 1)] = 2
     assert profiling.launch_counts()["K2"] == 3

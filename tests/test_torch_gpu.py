@@ -293,10 +293,10 @@ def test_spans_in_events_mode_on_card(cuda_device, monkeypatch, tmp_path):
         torch.cuda.synchronize()
     ev = profiling.PROFILER.events()
     by = {e.label: e for e in ev}
-    host_only = {"prove.row_evals", "prove.row_evals.encode", "prove.row_evals.products", "prove.combine",
-                 "msm.combine", "prove.assemble"}
-    assert {"prove", "prove.plans", "prove.msm", "prove.h", "prove.h.ntt", "prove.h.msm",
-            "prove.flags"} | host_only <= set(by)
+    host_only = {"prove.row_evals", "prove.combine", "msm.combine", "prove.assemble"}
+    assert {"prove", "prove.witness", "prove.h_inputs", "prove.h_inputs.products", "prove.plans", "prove.msm",
+            "prove.h", "prove.h.ntt", "prove.h.msm", "prove.flags"} | host_only <= set(by)
+    assert by["prove.h_inputs.products"].parent == by["prove.h_inputs"].span_id
     assert len({e.request for e in ev}) == 1 and by["prove"].parent is None and ev[-1] is by["prove"]
     assert by["prove.h.ntt"].parent == by["prove.h.msm"].parent == by["prove.h"].span_id
     assert all(e.parent == by["prove.combine"].span_id for e in ev if e.label == "msm.combine")
@@ -317,14 +317,16 @@ def test_spans_in_events_mode_on_card(cuda_device, monkeypatch, tmp_path):
 @pytest.mark.gpu
 def test_staged_inputs_on_card(cuda_device):
     """Two 2^12 proofs back to back, with different witnesses, through the
-    prover's pinned staging buffers (no fence between them): each verifies,
+    prover's pinned staging buffer (no fence between them): each verifies,
     each proof's four device inputs equal the bytes route's
-    (``_row_evals_bytes`` -> ``bytes_to_limbs`` / ``pack_bytes``), and
-    every witness value took the C encoder."""
+    (``_row_evals_bytes`` -> ``bytes_to_limbs`` / ``pack_bytes``: the host
+    products), every witness value took the C encoder, and both proofs'
+    products took the SpMV kernel, one launch each."""
     from go_snark_study_tpu_torch import native
     from go_snark_study_tpu_torch.models.groth16 import verify_proof
     from go_snark_study_tpu_torch.models.groth16_fast import FastGroth16
     from go_snark_study_tpu_torch.ops.limbs import bytes_to_limbs
+    from go_snark_study_tpu_torch.ops.r1cs_spmv import SPMV
     from go_snark_study_tpu_torch.synthetic import mul_chain_r1cs
 
     n = 1 << 12
@@ -342,9 +344,11 @@ def test_staged_inputs_on_card(cuda_device):
         return out
 
     fast._prove_inputs = record
+    launches = SPMV.launches
     proofs = [fast.prove(r1cs, setup.pk, rng=random.Random(3 + i)) for i, r1cs in enumerate(systems)]
     torch.cuda.synchronize()
-    assert all(b.is_pinned() for st in fast._stagings.values() for b in st.bufs)
+    assert SPMV.launches == launches + 2 and fast.product_routes == {"card": 2, "host": 0}
+    assert fast._stagings and all(st.buf.is_pinned() for st in fast._stagings.values())
     for r1cs, proof, ((w_limbs, wp_limbs, h_in), routes) in zip(systems, proofs, seen):
         assert verify_proof(setup.vk, proof, r1cs.witness[1 : r1cs.n_public + 1])
         a_b, b_b, c_b, w_b = r1cs._row_evals_bytes()
@@ -355,6 +359,30 @@ def test_staged_inputs_on_card(cuda_device):
         assert all(torch.equal(x, fast.Kr.pack_bytes(v, lanes=dpk.n)) for x, v in zip(h_in, (a_b, b_b, c_b)))
         assert routes["python"] == 0 and routes["native"] == m, routes
     assert not torch.equal(seen[0][0][0], seen[1][0][0])
+
+
+@pytest.mark.gpu
+def test_spmv_matches_plain_on_card(cuda_device):
+    """The SpMV kernel against its plain version on the CPU, bit for bit,
+    over ``test_torch_spmv``'s systems (rows of one term to 200, every
+    coefficient kind, a domain past the constraints), one launch each."""
+    from go_snark_study_tpu_torch.models.groth16_fast import _next_pow2
+    from go_snark_study_tpu_torch.ops import r1cs_spmv as sp
+    from go_snark_study_tpu_torch.ops.limbs import bytes_to_rows
+    from go_snark_study_tpu_torch.native import ints_to_bytes
+
+    from test_torch_spmv import CASES, make_system
+
+    for name in CASES:
+        r1cs = make_system(name)
+        n = _next_pow2(r1cs.n_constraints)
+        w = bytes_to_rows(ints_to_bytes(r1cs.witness, C.R), "cpu")
+        want = sp.r1cs_spmv_plain(sp.row_csr(r1cs, n, "cpu"), w)
+        launches = sp.SPMV.launches
+        got = sp.r1cs_spmv(sp.row_csr(r1cs, n, cuda_device), w.to(cuda_device))
+        torch.cuda.synchronize()
+        assert sp.SPMV.launches == launches + 1
+        assert torch.equal(got.cpu(), want), name
 
 
 @pytest.mark.gpu
