@@ -34,6 +34,7 @@ __all__ = [
     "Proof",
     "generate_trusted_setup",
     "generate_proofs",
+    "assemble_proof",
     "verify_proof",
 ]
 
@@ -206,8 +207,7 @@ def generate_proofs(
 ) -> Proof:
     """Reference: groth16.go:225-279."""
     ctx = ctx or default_context()
-    bn, fqr, pf = ctx.bn, ctx.fqr, ctx.pf
-    g1, g2 = bn.g1, bn.g2
+    fqr, pf = ctx.fqr, ctx.pf
 
     r = ctx.rand_fr(rng)
     s = ctx.rand_fr(rng)
@@ -221,6 +221,16 @@ def generate_proofs(
     pi_b_g1 = ctx.msm_g1(pk.g1.bacgamma[:hi], w_all)
     pi_b = ctx.msm_g2(pk.g2.bacgamma[:hi], w_all)
     pi_c = ctx.msm_g1(pk.bacdelta[lo:hi], w_priv)
+    hx = pf.divisor_polynomial(px, pk.z)  # in-prover like groth16.go:266
+    pi_h = ctx.msm_g1(pk.powers_tau_delta[: len(hx)], hx)
+    return assemble_proof(ctx, pk, r, s, pi_a, pi_b_g1, pi_b, pi_c, pi_h)
+
+
+def assemble_proof(ctx: ProtocolContext, pk: Pk, r: int, s: int, pi_a, pi_b_g1, pi_b, pi_c, pi_h) -> Proof:
+    """The proof from the draws r, s and the five MSMs: Σ w_i At_i, Σ w_i
+    B_i in G1 and in G2, Σ over the private w_i of BACDelta_i, and Σ h_i
+    tau^i Z(tau)/delta (groth16.go:240-279).  Every prover assembles here."""
+    g1, g2, fqr = ctx.bn.g1, ctx.bn.g2, ctx.fqr
 
     # piA = Σ w_i At_i + alpha + r*delta
     pi_a = g1.add(pi_a, pk.g1.alpha)
@@ -232,10 +242,8 @@ def generate_proofs(
     pi_b_g1 = g1.add(pi_b_g1, g1.mul_scalar(pk.g1.delta, s))
     pi_b = g2.add(pi_b, g2.mul_scalar(pk.g2.delta, s))
 
-    hx = pf.divisor_polynomial(px, pk.z)  # in-prover like groth16.go:266
-
     # piC += Σ h_i * (tau^i Z(tau)/delta) + s*piA + r*piB_G1 - r*s*delta
-    pi_c = g1.add(pi_c, ctx.msm_g1(pk.powers_tau_delta[: len(hx)], hx))
+    pi_c = g1.add(pi_c, pi_h)
     pi_c = g1.add(pi_c, g1.mul_scalar(pi_a, s))
     pi_c = g1.add(pi_c, g1.mul_scalar(pi_b_g1, r))
     neg_rs = fqr.neg(fqr.mul(r, s))

@@ -13,7 +13,7 @@ Mirrors ``go_snark_study_tpu/models/groth16_fast.py`` (``FastGroth16``,
     into a pinned staging buffer that the prover keeps and copied without
     blocking, and computes the three row evaluations there, with the
     system's rows kept on the device since its first proof (the SpMV,
-    :mod:`..ops.r1cs_spmv`; ``_prove_inputs``), builds
+    :mod:`..ops.r1cs_spmv`; ``_cross_inputs``), builds
     one signed-digit sort plan shared by the three same-witness MSMs (G2
     included), runs four G1 MSMs and one G2 MSM (K1), each with its
     degeneracy flag and complete-formula re-run, builds H(x) with the
@@ -50,14 +50,14 @@ from .. import _build
 from ..bn128 import constants as C
 from ..ops.curve_ops import G1Batch, G2Batch, tree_map
 from ..ops.fixed_base import FixedBaseEngine
-from ..ops.limbs import LIMBS, FieldKernels, bytes_to_rows, resolve_device, rows_to_limbs
+from ..ops.limbs import FieldKernels, bytes_to_rows, resolve_device, rows_to_limbs
 from ..ops.msm import MSMEngine, combine_window_sums, scalars_to_windows
 from ..ops.ntt import NTTEngine
 from ..ops.r1cs_spmv import r1cs_spmv, row_csr
 from ..profiling import span
 from ..synthetic import SparseR1CS
 from .context import ProtocolContext, default_context
-from .groth16 import Pk, Proof, Setup, Toxic
+from .groth16 import Pk, Proof, Setup, Toxic, assemble_proof
 
 __all__ = ["FastGroth16", "DevicePk"]
 
@@ -122,9 +122,6 @@ class FastGroth16:
         # degeneracy re-runs inside proofs, by MSM: at, b1 and cd (C's
         # private part) in G1, h (the H MSM) in G1, b2 in G2
         self.rerun_counts = dict.fromkeys(("at", "b1", "cd", "h", "b2"), 0)
-        # proofs whose three sparse products ran on the card (the SpMV
-        # kernel) or on the host (its plain version, on the CPU)
-        self.product_routes = {"card": 0, "host": 0}
 
     # -- fixed-base engines (their host tables are built on first use) --
     @property
@@ -454,22 +451,21 @@ class FastGroth16:
             st.copied.synchronize()
         return st
 
-    def _prove_inputs(self, r1cs: SparseR1CS, dpk: DevicePk):
-        """The prover's host-to-device crossing: (w_limbs (8, m_pad) and
-        wp_limbs (8, mp_pad), the witness and its private part as plain
-        limbs, the MSM digit source; (a, b, c) (8, n), the row evaluations
-        in Montgomery form, the H pipeline's inputs).  The witness is
-        encoded straight into its staging buffer (:meth:`_staging`;
-        ``SparseR1CS._witness_into``), crosses once by a non-blocking copy
-        and is relaid there; ``wp_limbs`` is a slice of ``w_limbs`` on the
-        device.  The three products are one SpMV over the system's rows
-        (:func:`..ops.r1cs_spmv.r1cs_spmv`: the kernel on the card, its
-        plain version on the CPU), on the witness as it crossed; the rows
-        go to the device at the system's first proof and stay there
-        (:func:`..ops.r1cs_spmv.row_csr`).  ``product_routes`` counts the
-        proof by where its products ran."""
+    def _cross_inputs(self, r1cs: SparseR1CS, n: int, *cuts):
+        """The prover's host-to-device crossing, over a domain of n rows.
+        The witness is encoded straight into its staging buffer
+        (:meth:`_staging`; ``SparseR1CS._witness_into``), crosses once by a
+        non-blocking copy and is laid out there: for each cut ``(first,
+        lanes)``, the witness values from ``first`` on as (8, lanes) plain
+        limbs, zero padded, an MSM digit source.  The three products are one
+        SpMV over the system's rows (:func:`..ops.r1cs_spmv.r1cs_spmv`: the
+        kernel on the card, its plain version on the CPU), on the witness as
+        it crossed; the rows go to the device at the system's first proof
+        and stay there (:func:`..ops.r1cs_spmv.row_csr`).  Returns (the
+        cuts' limbs, (a, b, c) (8, n) in Montgomery form: the H pipeline's
+        inputs).  Both provers cross their inputs here."""
         dv = self.device
-        csr = row_csr(r1cs, dpk.n, dv)
+        csr = row_csr(r1cs, n, dv)
         with span("prove.row_evals"):
             st = self._staging(len(r1cs.witness))
             r1cs._witness_into(st.buf.numpy())
@@ -478,15 +474,31 @@ class FastGroth16:
             if dv.type == "cuda":
                 st.copied = torch.cuda.Event()
                 st.copied.record()
-            w_limbs = rows_to_limbs(w_rows, dpk.m_pad)
-            m, lo = w_rows.shape[0], dpk.lo
-            wp_limbs = w_limbs.new_zeros((LIMBS, dpk.mp_pad))
-            wp_limbs[:, : m - lo] = w_limbs[:, lo:m]
+            limbs = [rows_to_limbs(w_rows[first : first + lanes], lanes) for first, lanes in cuts]
         with span("prove.h_inputs", dv):
             with span("prove.h_inputs.products", dv):
                 h_in = tuple(r1cs_spmv(csr, w_rows))
-            self.product_routes["card" if dv.type == "cuda" else "host"] += 1
+        return limbs, h_in
+
+    def _prove_inputs(self, r1cs: SparseR1CS, dpk: DevicePk):
+        """The single-card prover's crossing (:meth:`_cross_inputs`):
+        (w_limbs (8, m_pad) and wp_limbs (8, mp_pad), the witness and its
+        private part as plain limbs; (a, b, c) (8, n), the H pipeline's
+        inputs)."""
+        (w_limbs, wp_limbs), h_in = self._cross_inputs(r1cs, dpk.n, (0, dpk.m_pad), (dpk.lo, dpk.mp_pad))
         return w_limbs, wp_limbs, h_in
+
+    def _checked(self, key: str, eng: MSMEngine, sums, bad, redo):
+        """``eng.rerun_if_flagged`` for the proof's MSM ``key`` (at, b1 and
+        cd, C's private part, in G1, h, the H MSM, in G1, b2 in G2): a
+        re-run is counted in ``rerun_counts`` and spanned ``prove.rerun``."""
+
+        def rerun(twin):
+            self.rerun_counts[key] += 1
+            with span("prove.rerun", self.device):
+                return redo(twin)
+
+        return eng.rerun_if_flagged(sums, bad, rerun)
 
     # ------------------------------------------------------------------
     def prove_sharded(self, r1cs: SparseR1CS, pk: Pk, mesh, rng=None) -> Proof:
@@ -494,9 +506,9 @@ class FastGroth16:
         rank with the same host-materialised ``pk`` and an ``rng`` in the
         same state, it returns the same proof there.  Each rank keeps its
         slice of the key on its device (cached on the Pk) and runs the five
-        MSMs over it; the window sums are combined on the host.  Proof
-        assembly is :meth:`prove`'s and verifies under the same verifier.
-        One prover per mesh, cached."""
+        MSMs over it; the window sums are combined on the host.  The input
+        crossing, the complete-formula re-runs and the proof assembly are
+        :meth:`prove`'s.  One prover per mesh, cached."""
         from ..parallel.sharded_prover import ShardedFastProver
 
         key = id(mesh)
@@ -514,7 +526,6 @@ class FastGroth16:
 
     def _prove(self, r1cs: SparseR1CS, pk: Pk, rng) -> Proof:
         ctx = self.ctx
-        r = C.R
         g1, g2 = ctx.bn.g1, ctx.bn.g2
         n = _next_pow2(r1cs.n_constraints)
         lo = r1cs.n_public + 1
@@ -555,16 +566,9 @@ class FastGroth16:
                 s_h = self.msm_g1.window_sums_eager(dpk.ptau, h_digits, c_h)
 
         # degeneracy-flag check: an incomplete-formula MSM whose flag fired
-        # runs again on the complete-engine twin (exact always), counted by
-        # MSM in ``rerun_counts`` and spanned ``prove.rerun``
+        # runs again on the complete-engine twin (exact always)
         def chk(key, eng, sf, pts, limbs, c, plans=None):
-            sums, bad = sf
-            if bool(bad):
-                eng.fallback_hits += 1
-                self.rerun_counts[key] += 1
-                with span("prove.rerun", dv):
-                    sums, _ = eng.fallback_engine().window_sums_eager(pts, limbs, c, plans)
-            return sums
+            return self._checked(key, eng, *sf, lambda twin: twin.window_sums_eager(pts, limbs, c, plans)[0])
 
         with span("prove.flags", dv):
             s_at = chk("at", self.msm_g1, s_at, dpk.at, w_limbs, c_m, plans_w)
@@ -582,16 +586,4 @@ class FastGroth16:
             pi_h = comb1(s_h, c_h)
 
         with span("prove.assemble"):
-            pi_a = g1.add(pi_a, pk.g1.alpha)
-            pi_a = g1.add(pi_a, g1.mul_scalar(pk.g1.delta, r_rand))
-            pi_b_g1 = g1.add(pi_b_g1, pk.g1.beta)
-            pi_b = g2.add(pi_b, pk.g2.beta)
-            pi_b_g1 = g1.add(pi_b_g1, g1.mul_scalar(pk.g1.delta, s_rand))
-            pi_b = g2.add(pi_b, g2.mul_scalar(pk.g2.delta, s_rand))
-
-            pi_c = g1.add(pi_c, pi_h)
-            pi_c = g1.add(pi_c, g1.mul_scalar(pi_a, s_rand))
-            pi_c = g1.add(pi_c, g1.mul_scalar(pi_b_g1, r_rand))
-            neg_rs = (-(r_rand * s_rand)) % r
-            pi_c = g1.add(pi_c, g1.mul_scalar(pk.g1.delta, neg_rs))
-        return Proof(pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)
+            return assemble_proof(ctx, pk, r_rand, s_rand, pi_a, pi_b_g1, pi_b, pi_c, pi_h)

@@ -7,11 +7,9 @@ Mirrors ``go_snark_study_tpu/native.py``:
     default), the JAX package's host bridge; the library works in the JAX
     (32, N) 8-bit layout and the arrays are relaid here;
   * :meth:`NativeField.sparse_matvec_into` — A·w mod p as the library's
-    canonical 32-byte values, written into a host buffer: the fast
-    prover's row evaluations, which cross to the card as bytes
-    (``ops.limbs.bytes_to_limbs``); :meth:`NativeField.sparse_matvec_bytes`
-    returns them as ``bytes``;
-    :meth:`NativeField.sparse_matvec` decodes them to ints;
+    canonical 32-byte values, written into a host buffer: the host
+    products of ``SparseR1CS._products_into``, which the prover's SpMV on
+    the card is held to;
   * :meth:`NativeField.witness_eval` — field-mode witness computation.
 
 :func:`ints_to_bytes`, :func:`ints_into` and :func:`ints_from_bytes` are the
@@ -291,18 +289,6 @@ class NativeField:
             raise ValueError("sparse_matvec_into: a column lies outside the witness")
         self.lib.gosnark_sparse_matvec(self._ctx, _i64ptr(indptr), _i64ptr(cols), _i64ptr(vals),
                                        witness.ctypes.data, n_rows, out.ctypes.data)
-
-    def sparse_matvec_bytes(self, indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, witness) -> bytes:
-        """:meth:`sparse_matvec_into` as bytes.  ``witness``: ints, or their
-        :func:`ints_to_bytes` encoding."""
-        wb = witness if isinstance(witness, bytes) else self.ints_to_bytes(witness)
-        out = np.empty(32 * (len(indptr) - 1), dtype=np.uint8)
-        self.sparse_matvec_into(indptr, cols, vals, np.frombuffer(wb, dtype=np.uint8), out)
-        return out.tobytes()
-
-    def sparse_matvec(self, indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, witness) -> List[int]:
-        """:meth:`sparse_matvec_bytes`, decoded: one int per row."""
-        return ints_from_bytes(self.sparse_matvec_bytes(indptr, cols, vals, witness))
 
     def witness_eval(self, ops: np.ndarray, seeded_witness: Sequence[int]) -> List[int]:
         """ops: (n_ops, 7) int64 in the encoding documented in the C++

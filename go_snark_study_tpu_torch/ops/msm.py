@@ -35,6 +35,7 @@ What differs from the JAX package:
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence
 
 import torch
@@ -518,25 +519,28 @@ class MSMEngine:
 
     # ------------------------------------------------------------------
     def fallback_engine(self) -> "MSMEngine":
-        """The complete-formula twin used when a degeneracy flag fires."""
+        """The complete-formula twin used when a degeneracy flag fires: a
+        copy of this engine (its layout, and a subclass's own state such as
+        a mesh) with ``complete=True`` and counters of its own."""
         if self.complete:
             return self
         if self._fallback is None:
-            self._fallback = MSMEngine(
-                self.bg,
-                self.host_group,
-                self.r,
-                window_bits=self.window_bits,
-                tile_threshold=self.tile_threshold,
-                tile_steps=self.tile_steps,
-                tile_lanes=self.tile_lanes,
-                group_bytes=self.group_bytes,
-                chunk_lanes=self.chunk_lanes,
-                small_chunk_lanes=self.small_chunk_lanes,
-                small_chunk_max=self.small_chunk_max,
-                complete=True,
-            )
+            twin = copy.copy(self)
+            twin.complete, twin.fallback_hits = True, 0
+            self._fallback = twin
         return self._fallback
+
+    def rerun_if_flagged(self, sums, bad, redo):
+        """The exact result of an MSM run on this engine that gave ``sums``
+        and the degeneracy flag ``bad`` (a sharded caller's already ORed
+        over the ranks): when the flag fired, read here where the host waits
+        for the device, ``redo(engine)`` runs the MSM again on the
+        complete-formula twin and its result is returned.  Each re-run
+        counts one in ``fallback_hits``.  A complete engine reads no flag."""
+        if self.complete or not bool(bad):
+            return sums
+        self.fallback_hits += 1
+        return redo(self.fallback_engine())
 
     def window_sums_checked(self, aff_points, limbs, c: int, plans=None):
         """window_sums_eager + host flag check + automatic complete-formula
@@ -544,13 +548,9 @@ class MSMEngine:
         where the host waits for the card, and the re-run are the
         ``msm.flags`` span."""
         sums, bad = self.window_sums_eager(aff_points, limbs, c, plans)
-        if self.complete:
-            return sums
-        with span("msm.flags", self.device):
-            if bool(bad):
-                self.fallback_hits += 1
-                sums, _ = self.fallback_engine().window_sums_eager(aff_points, limbs, c, plans)
-        return sums
+        with span("msm.flags", self.device, when=not self.complete):
+            return self.rerun_if_flagged(
+                sums, bad, lambda eng: eng.window_sums_eager(aff_points, limbs, c, plans)[0])
 
     def msm_device(self, dev_points, limbs):
         """Jacobian point pytree + scalar limbs -> one host Jacobian point:

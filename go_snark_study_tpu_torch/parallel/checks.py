@@ -132,11 +132,16 @@ def msm_hook(points, scalars, layout, device) -> dict:
     return dict(total=total, fallback_hits=g1e.fallback_hits)
 
 
-def prove(r1cs, pk, rng, layout, device):
-    """``FastGroth16.prove_sharded`` on this rank, from a given key."""
+def prove(r1cs, pk, rng, layout, device) -> dict:
+    """``FastGroth16.prove_sharded`` on this rank, from a given key: the
+    proof, the prover's ``rerun_counts`` and its two engines'
+    ``fallback_hits``."""
     from ..models.groth16_fast import FastGroth16
 
-    return FastGroth16(device=device).prove_sharded(r1cs, pk, mesh_for(layout, device), rng=rng)
+    fast = FastGroth16(device=device)
+    proof = fast.prove_sharded(r1cs, pk, mesh_for(layout, device), rng=rng)
+    return dict(proof=proof, rerun_counts=dict(fast.rerun_counts),
+                fallback_hits=fast.msm_g1.fallback_hits + fast.msm_g2.fallback_hits)
 
 
 def shape_check(n_log2: int, layout, device) -> dict:

@@ -76,27 +76,6 @@ class ShardedMSMEngine(MSMEngine):
             sums = self._gather_tree_add(sums, ax)
         return sums, bad
 
-    def fallback_engine(self) -> "ShardedMSMEngine":
-        if self.complete:
-            return self
-        if self._fallback is None:
-            self._fallback = ShardedMSMEngine(
-                self.bg,
-                self.host_group,
-                self.r,
-                self.mesh,
-                window_bits=self.window_bits,
-                tile_threshold=self.tile_threshold,
-                tile_steps=self.tile_steps,
-                tile_lanes=self.tile_lanes,
-                group_bytes=self.group_bytes,
-                chunk_lanes=self.chunk_lanes,
-                small_chunk_lanes=self.small_chunk_lanes,
-                small_chunk_max=self.small_chunk_max,
-                complete=True,
-            )
-        return self._fallback
-
     def pack_share(self, host_points, host_scalars: Sequence[int]):
         """This rank's share of an n-point MSM, every rank's an equal
         multiple of the lane quantum, identity- and zero-padded: (Jacobian
@@ -120,7 +99,5 @@ class ShardedMSMEngine(MSMEngine):
             return self.host_group.zero()
         dev_pts, limbs, c = self.pack_share(host_points, host_scalars)
         sums, bad = self.window_sums_sharded(dev_pts, limbs, c)
-        if not self.complete and bad:
-            self.fallback_hits += 1
-            sums, _ = self.fallback_engine().window_sums_sharded(dev_pts, limbs, c)
+        sums = self.rerun_if_flagged(sums, bad, lambda eng: eng.window_sums_sharded(dev_pts, limbs, c)[0])
         return combine_window_sums(self.host_group, self.bg.unpack(sums), c)

@@ -21,8 +21,12 @@ process per rank:
     it whole and takes its slice of the H digits, so no collective is
     needed and the values are the same everywhere.
 
-Degeneracy flags are ORed across ranks before the complete-formula re-run,
-so every rank re-runs together.
+The witness crosses to each rank's device as it does for the single-card
+prover (``FastGroth16._cross_inputs``: the staging buffer, one copy, the
+SpMV for H's inputs), and each rank lays out its own lanes of it.
+Degeneracy flags are ORed across ranks before the complete-formula re-run
+(``FastGroth16._checked``), so every rank re-runs together.  The proof is
+assembled by ``models.groth16.assemble_proof``, as every prover's is.
 
 ``rng`` must be in the same state on every rank (it draws r and s): ranks
 seeded alike return the same proof.
@@ -35,9 +39,8 @@ from dataclasses import dataclass
 import torch
 
 from ..bn128 import constants as C
-from ..models.groth16 import Pk, Proof
+from ..models.groth16 import Pk, Proof, assemble_proof
 from ..ops.curve_ops import tree_leaves
-from ..ops.limbs import bytes_to_limbs
 from ..ops.msm import MSMEngine, bucket_count, combine_window_sums, num_windows, scalars_to_limbs
 from .mesh import Mesh, all_gather, any_rank
 from .sharded_msm import _unflatten
@@ -167,13 +170,6 @@ class ShardedFastProver:
         mine = list(scalars[lo : lo + local])
         return scalars_to_limbs(mine + [0] * (local - len(mine)), C.R, self.fast.device)
 
-    def shard_bytes(self, buf: bytes, local: int, first: int = 0) -> torch.Tensor:
-        """Canonical 32-byte values (``SparseR1CS._row_evals_bytes``) ->
-        this rank's (8, local) plain limbs, values ``first + rank * local``
-        on, zero padded."""
-        lo = 32 * (first + self.rank * local)
-        return bytes_to_limbs(buf[lo : lo + 32 * local], self.fast.device, local)
-
     def _my_rows(self, rows: torch.Tensor, local: int) -> torch.Tensor:
         """(8, n) limbs -> this rank's (8, local) columns, zero padded."""
         lo = min(self.rank * local, rows.shape[1])
@@ -195,31 +191,29 @@ class ShardedFastProver:
             combined = pts if combined is None else [host.add(x, y) for x, y in zip(combined, pts)]
         return combined, bad
 
-    def _msm(self, eng, points, plans: dict):
+    def _msm(self, key: str, eng, points, plans: dict):
+        """The mesh's MSM ``key`` (``FastGroth16.rerun_counts``'s keys),
+        combined on the host; every rank re-runs together, its flag ORed
+        over the ranks."""
         pts, bad = self.window_sums(eng, points, plans)
-        if bad and not eng.complete:
-            eng.fallback_hits += 1
-            pts, _ = self.window_sums(eng.fallback_engine(), points, plans)
+        pts = self.fast._checked(key, eng, pts, bad, lambda twin: self.window_sums(twin, points, plans)[0])
         return combine_window_sums(eng.host_group, pts, plans["c"])
 
     # ------------------------------------------------------------------
     def prove(self, r1cs, pk: Pk, rng=None) -> Proof:
-        """Same proof assembly as FastGroth16.prove (groth16.go:225-279);
-        the five MSMs run data-parallel over the mesh from this rank's
-        slice of the key."""
+        """FastGroth16.prove's proof, with its input crossing,
+        complete-formula re-runs and assembly; the five MSMs run
+        data-parallel over the mesh from this rank's slice of the key."""
         from ..models.groth16_fast import _next_pow2
 
         fast = self.fast
-        ctx = fast.ctx
-        r = C.R
-        g1, g2 = ctx.bn.g1, ctx.bn.g2
         n = _next_pow2(r1cs.n_constraints)
         lo = r1cs.n_public + 1
         spk = self.shard_pk(pk, n, lo)
         eng1, eng2 = fast.msm_g1, fast.msm_g2
 
-        r_rand = ctx.rand_fr(rng)
-        s_rand = ctx.rand_fr(rng)
+        r_rand = fast.ctx.rand_fr(rng)
+        s_rand = fast.ctx.rand_fr(rng)
 
         # window widths follow the LOCAL lane count, the pipeline each
         # shard actually runs
@@ -227,37 +221,20 @@ class ShardedFastProver:
         c_p = eng1.window_bits_for(spk.local_mp)
         c_h = eng1.window_bits_for(spk.local_n)
 
-        # the witness and the row evaluations cross as bytes, as in prove
-        a_b, b_b, c_b, w_b = r1cs._row_evals_bytes()
-        w_limbs = self.shard_bytes(w_b, spk.local_m)
-        wp_limbs = self.shard_bytes(w_b, spk.local_mp, first=lo)
+        # this rank's lanes of the witness and of its private part
+        (w_limbs, wp_limbs), h_in = fast._cross_inputs(
+            r1cs, n, (self.rank * spk.local_m, spk.local_m), (lo + self.rank * spk.local_mp, spk.local_mp))
         plans_w = eng1.make_plans(w_limbs, c_m)
         plans_p = eng1.make_plans(wp_limbs, c_p)
 
-        pi_a = self._msm(eng1, spk.at, plans_w)
-        pi_b_g1 = self._msm(eng1, spk.b1, plans_w)
-        pi_b = self._msm(eng2, spk.b2, plans_w)
-        pi_c = self._msm(eng1, spk.cdelta, plans_p)
+        pi_a = self._msm("at", eng1, spk.at, plans_w)
+        pi_b_g1 = self._msm("b1", eng1, spk.b1, plans_w)
+        pi_b = self._msm("b2", eng2, spk.b2, plans_w)
+        pi_c = self._msm("cd", eng1, spk.cdelta, plans_p)
 
         # H(x) via the single-device coset pipeline on every rank, then this
         # rank's slice of the H digits for the ptau MSM
-        h_in = [fast.Kr.pack_bytes(v, lanes=n) for v in (a_b, b_b, c_b)]
         h_digits = fast._get_h_jit(n, n)(*h_in, *fast._ntt_args(n))
-        h_mine = self._my_rows(h_digits, spk.local_n)
-        plans_h = eng1.make_plans(h_mine, c_h)
-        pi_h = self._msm(eng1, spk.ptau, plans_h)
-
-        pi_a = g1.add(pi_a, pk.g1.alpha)
-        pi_a = g1.add(pi_a, g1.mul_scalar(pk.g1.delta, r_rand))
-        pi_b_g1 = g1.add(pi_b_g1, pk.g1.beta)
-        pi_b = g2.add(pi_b, pk.g2.beta)
-        pi_b_g1 = g1.add(pi_b_g1, g1.mul_scalar(pk.g1.delta, s_rand))
-        pi_b = g2.add(pi_b, g2.mul_scalar(pk.g2.delta, s_rand))
-
-        pi_c = g1.add(pi_c, pi_h)
-        pi_c = g1.add(pi_c, g1.mul_scalar(pi_a, s_rand))
-        pi_c = g1.add(pi_c, g1.mul_scalar(pi_b_g1, r_rand))
-        neg_rs = (-(r_rand * s_rand)) % r
-        pi_c = g1.add(pi_c, g1.mul_scalar(pk.g1.delta, neg_rs))
-        return Proof(pi_a=pi_a, pi_b=pi_b, pi_c=pi_c)
-
+        plans_h = eng1.make_plans(self._my_rows(h_digits, spk.local_n), c_h)
+        pi_h = self._msm("h", eng1, spk.ptau, plans_h)
+        return assemble_proof(fast.ctx, pk, r_rand, s_rand, pi_a, pi_b_g1, pi_b, pi_c, pi_h)

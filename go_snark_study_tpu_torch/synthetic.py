@@ -159,8 +159,9 @@ class SparseR1CS:
     def _row_evals_bytes(self) -> Tuple[bytes, bytes, bytes, bytes]:
         """(a, b, c, w): the three row evaluations over Fr and the witness
         they share, each value canonical (< r) in 32 little-endian bytes,
-        as ``bytes`` (:meth:`_witness_into`, then :meth:`_products_into`):
-        the host route that the prover's SpMV is held to."""
+        as ``bytes`` (:meth:`_witness_into`, then :meth:`_products_into`).
+        Neither prover calls it: it is the host reference that the tests and
+        ``chip_smoke.py`` hold the prover's SpMV to."""
         w = np.empty(32 * len(self.witness), dtype=np.uint8)
         outs = tuple(np.empty(32 * len(rows), dtype=np.uint8) for rows in (self.A, self.B, self.C))
         self._witness_into(w)

@@ -253,6 +253,31 @@ def test_sharded_msm_matches_host(four_ranks):
         assert bn.g1.equal(sums["total"], want)
 
 
+def test_sharded_fallback_engine_keeps_the_mesh():
+    """The complete-formula twin of a ShardedMSMEngine is a ShardedMSMEngine
+    over the same mesh with the same layout and counters of its own, and is
+    its own twin."""
+    from types import SimpleNamespace
+
+    from go_snark_study_tpu_torch.ops.curve_ops import G1Batch
+    from go_snark_study_tpu_torch.ops.limbs import FieldKernels
+    from go_snark_study_tpu_torch.parallel.sharded_msm import ShardedMSMEngine
+
+    mesh = SimpleNamespace(axis_names=("host", "data"))
+    eng = ShardedMSMEngine(G1Batch(FieldKernels(C.Q, "cpu")), default_bn128().g1, C.R, mesh, window_bits=9,
+                           tile_threshold=256, tile_steps=4, tile_lanes=64, group_bytes=1 << 20,
+                           chunk_lanes=1 << 12, small_chunk_lanes=1 << 10, small_chunk_max=1 << 11)
+    eng.fallback_hits = 3
+    twin = eng.fallback_engine()
+    assert type(twin) is ShardedMSMEngine and twin is not eng and eng.fallback_engine() is twin
+    assert twin.mesh is mesh and twin.axes == ("host", "data")
+    assert twin.complete and not eng.complete and twin.fallback_hits == 0 and eng.fallback_hits == 3
+    layout = ("bg", "host_group", "r", "window_bits", "tile_threshold", "tile_steps", "tile_lanes", "group_bytes",
+              "chunk_lanes", "small_chunk_lanes", "small_chunk_max")
+    assert {k: getattr(twin, k) for k in layout} == {k: getattr(eng, k) for k in layout}
+    assert twin.fallback_engine() is twin
+
+
 def test_sharded_msm_hook_matches_host(four_ranks):
     """enable_gpu_msm(device="cpu", mesh=data_mesh(4), min_size=4): one
     64-point G1 MSM through ShardedMSMEngine.msm, its flag ORed over the
@@ -271,7 +296,8 @@ def test_sharded_msm_hook_matches_host(four_ranks):
 def test_prove_sharded_is_golden_proof(port_setup, two_ranks):
     """prove_sharded on 2 ranks, from the port's setup and the rng in its
     state after setup, gives JAX's recorded proof as group elements on
-    both ranks, and it verifies."""
+    both ranks, and it verifies; its complete-formula re-runs, counted by
+    MSM, are its engines' ``fallback_hits``."""
     from go_snark_study_tpu_torch.models.groth16 import verify_proof
 
     r1cs, setup, _ = port_setup
@@ -279,7 +305,11 @@ def test_prove_sharded_is_golden_proof(port_setup, two_ranks):
     g1 = lambda p: tuple(int(c) for c in p)
     g2 = lambda p: tuple((int(c[0]), int(c[1])) for c in p)
     bn = default_bn128()
-    proofs = [r[2] for r in two_ranks]
+    proofs = [r[2]["proof"] for r in two_ranks]
+    for r in two_ranks:
+        assert set(r[2]["rerun_counts"]) == {"at", "b1", "cd", "h", "b2"}
+        assert sum(r[2]["rerun_counts"].values()) == r[2]["fallback_hits"] > 0  # tiny MSMs fire their flags
+    assert two_ranks[0][2]["rerun_counts"] == two_ranks[1][2]["rerun_counts"]
     for proof in proofs:
         assert bn.g1.equal(proof.pi_a, g1(meta["pi_a"]))
         assert bn.g2.equal(proof.pi_b, g2(meta["pi_b"]))

@@ -1,12 +1,13 @@
 """circomlib's SHA-256 in the port (``go_snark_study_tpu_torch.circuits.sha256``)
-against its plain reference (``tests/sha256_reference.py``, the same file as
-``benchmark/reference_sha256.py``) and ``hashlib``: the full circuit over one
+against its plain reference (``benchmark/reference_sha256.py``, the
+benchmark's, which imports nothing of the port) and ``hashlib``: the full circuit over one
 and two compressions row for row, a two-round circuit proven on the CPU
 against the closed form and the verifier, and, on the card, the 1,984-byte
 circuit of the benchmark's ``sha256-2e20``.  Imports no JAX:
 ``python -m pytest --noconftest -m gpu tests/test_torch_sha256.py`` runs on
 the card."""
 
+import ast
 import hashlib
 import os
 import random
@@ -15,7 +16,7 @@ from pathlib import Path
 import pytest
 import torch
 
-import sha256_reference as ref
+from benchmark import reference_sha256 as ref
 from go_snark_study_tpu_torch import profiling
 from go_snark_study_tpu_torch.circuits import sha256
 from go_snark_study_tpu_torch.models.groth16 import verify_proof
@@ -34,9 +35,16 @@ def test_constants_are_fips_180_4():
     assert list(sha256.K) == ref.ROUND_K and list(sha256.H0) == ref.INITIAL_H
 
 
-def test_reference_copies_are_one_file():
-    assert (ROOT / "tests" / "sha256_reference.py").read_bytes() == \
-        (ROOT / "benchmark" / "reference_sha256.py").read_bytes()
+def test_reference_imports_nothing_of_the_program():
+    """The reference and the module it imports hold the port to an answer
+    made apart from it: neither imports the port, the JAX package or JAX."""
+    for name in ("reference_sha256.py", "reference.py"):
+        tree = ast.parse((ROOT / "benchmark" / name).read_text())
+        mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        mods += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+        assert mods, name
+        for mod in mods:
+            assert mod.split(".")[0] not in ("go_snark_study_tpu_torch", "go_snark_study_tpu", "jax"), (name, mod)
 
 
 @pytest.mark.parametrize("n", [0, 55, 56, 64, 119])

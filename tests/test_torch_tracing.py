@@ -217,7 +217,8 @@ def test_msm_flags_and_combine_spans(prof, monkeypatch):
     twin = types.SimpleNamespace(window_sums_eager=lambda *a: reruns.append(a) or ("again", None))
     eng = types.SimpleNamespace(complete=False, device=torch.device("cpu"), fallback_hits=0,
                                 window_sums_eager=lambda *a: ("sums", torch.tensor(True)),
-                                fallback_engine=lambda: twin)
+                                fallback_engine=lambda: twin,
+                                rerun_if_flagged=lambda *a: msm.MSMEngine.rerun_if_flagged(eng, *a))
     assert msm.MSMEngine.window_sums_checked(eng, "pts", "limbs", 4) == "again"
     assert eng.fallback_hits == 1 and len(reruns) == 1
     eng.complete = True
