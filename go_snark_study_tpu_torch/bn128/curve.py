@@ -20,6 +20,7 @@ The batched device versions of these formulas live in
 
 from __future__ import annotations
 
+from .. import native
 from ..fields import Fq, Fq2
 
 __all__ = ["GroupG1", "GroupG2"]
@@ -99,7 +100,13 @@ class _JacobianGroup:
 
     def mul_scalar(self, p, e: int):
         """MSB-first double-and-add (reference g1.go:140-155).  The device MSM in
-        ops/msm.py replaces loops of this with Pippenger bucket accumulation."""
+        ops/msm.py replaces loops of this with Pippenger bucket accumulation.
+        The loop runs in C (``native.mul_scalar``, the same formulas on
+        Montgomery limbs, the same triple); here where the C takes no such
+        inputs."""
+        q = native.mul_scalar(self.F, p, e)
+        if q is not None:
+            return q
         q = self.zero()
         if e == 0:
             return q

@@ -12,6 +12,12 @@ Mirrors ``go_snark_study_tpu/native.py``:
     the card is held to;
   * :meth:`NativeField.witness_eval` — field-mode witness computation.
 
+:func:`mul_scalar` and :func:`combine_windows` run the host group law's two
+long chains, ``bn128.curve``'s double-and-add and the MSM's window
+combination, in the same library over 4x64-bit Montgomery limbs, G1 and G2:
+the same Jacobian triples as the Python law, which runs wherever they return
+None.  :data:`CHAINS` counts the chains each route ran.
+
 :func:`ints_to_bytes`, :func:`ints_into` and :func:`ints_from_bytes` are the
 byte encoding every crossing shares: 32 little-endian bytes a value, reduced
 mod p.  The encoder reads the int objects themselves in C
@@ -41,7 +47,10 @@ from typing import List, Sequence
 
 import numpy as np
 
-__all__ = ["available", "NativeField", "LIB_PATH", "ENCODED", "ints_to_bytes", "ints_into", "ints_from_bytes"]
+from .fields import Fq, Fq2
+
+__all__ = ["available", "NativeField", "LIB_PATH", "ENCODED", "CHAINS", "ints_to_bytes", "ints_into",
+           "ints_from_bytes", "mul_scalar", "combine_windows"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE_DIR = os.path.join(_ROOT, "native")
@@ -53,10 +62,13 @@ PYINTS_LIB = os.path.join(_ROOT, "build", "native",
 
 # values each route of the encoder wrote in this process
 ENCODED = {"native": 0, "python": 0}
+# point chains (scalar multiplications and window combinations) each route ran
+CHAINS = {"native": 0, "python": 0}
 
 _lib = None
 _tried_build = False
 _pyints = None
+_curves = {}  # (q, non-residue) -> the library's curve context
 
 
 def _try_build() -> None:
@@ -135,7 +147,7 @@ def _build_pyints() -> None:
         return
     os.makedirs(os.path.dirname(PYINTS_LIB), exist_ok=True)
     tmp = f"{PYINTS_LIB}.{os.getpid()}.tmp"
-    subprocess.run([cc, "-O2", "-shared", "-fPIC", f"-I{include}", "-o", tmp, PYINTS_SRC],
+    subprocess.run([cc, "-O3", "-shared", "-fPIC", f"-I{include}", "-o", tmp, PYINTS_SRC],
                    capture_output=True, timeout=120, check=False)
     if os.path.exists(tmp):
         os.replace(tmp, PYINTS_LIB)
@@ -156,8 +168,64 @@ def _load_pyints():
         lib.gosnark_encode_ints.argtypes = [ctypes.py_object, ctypes.c_void_p, ctypes.c_char_p, ctypes.py_object]
         lib.gosnark_ints_to_bytes.restype = ctypes.py_object
         lib.gosnark_ints_to_bytes.argtypes = [ctypes.py_object, ctypes.c_char_p, ctypes.py_object]
+        lib.gosnark_curve_new.restype = ctypes.c_void_p
+        lib.gosnark_curve_new.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+        lib.gosnark_mul_scalar.restype = ctypes.py_object
+        lib.gosnark_mul_scalar.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.py_object, ctypes.py_object]
+        lib.gosnark_combine_windows.restype = ctypes.py_object
+        lib.gosnark_combine_windows.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.py_object, ctypes.c_ssize_t]
         _pyints = lib
     return _pyints
+
+
+def _curve(F):
+    """(library, context, degree) for the group law over F: Fq is G1's
+    field (degree 1), Fq2 G2's (degree 2); None where the C takes no such
+    field (another field, a modulus it refuses) or the library is missing."""
+    lib = _load_pyints()
+    if not lib:
+        return None
+    if isinstance(F, Fq2):
+        deg, q, nr = 2, F.F.q, F.non_residue
+    elif isinstance(F, Fq):
+        deg, q, nr = 1, F.q, 0
+    else:
+        return None
+    key = (q, nr)
+    ctx = _curves.get(key)
+    if ctx is None:
+        ctx = _curves[key] = (lib.gosnark_curve_new(q.to_bytes(32, "little"), (nr % q).to_bytes(32, "little"))
+                              if q < 2**256 else None) or 0
+    return (lib, ctx, deg) if ctx else None
+
+
+def _counted(out):
+    CHAINS["python" if out is None else "native"] += 1
+    return out
+
+
+def mul_scalar(F, p, e):
+    """e·p over F's curve by ``bn128.curve``'s MSB-first double-and-add,
+    in C: the triple the Python law gives.  None, for the Python law to run,
+    where there is no library or curve context, a coordinate is not an exact
+    int in [0, q) or e not one in [0, 2^256)."""
+    curve = _curve(F)
+    if curve is None:
+        return _counted(None)
+    lib, ctx, deg = curve
+    return _counted(lib.gosnark_mul_scalar(ctx, deg, p, e))
+
+
+def combine_windows(F, window_pts, c):
+    """Σ_w 2^(c·w)·window_pts[w] over F's curve, MSB window first, as
+    ``ops.msm.combine_window_sums``'s loop computes it, in C; None, for that
+    loop to run, where :func:`mul_scalar` would give None, ``window_pts`` is
+    not a list or a tuple, or c not an int in [0, 2^31)."""
+    curve = _curve(F)
+    if curve is None or type(c) is not int or not 0 <= c < 2**31:
+        return _counted(None)
+    lib, ctx, deg = curve
+    return _counted(lib.gosnark_combine_windows(ctx, deg, window_pts, c))
 
 
 def _i64ptr(a: np.ndarray):

@@ -43,7 +43,7 @@ import torch
 from ..profiling import span
 from . import msm_kernels as _mk
 from .curve_ops import tree_leaves, tree_map
-from ..native import ints_to_bytes
+from ..native import combine_windows, ints_to_bytes
 from .limbs import LIMBS, bytes_to_limbs, to_u64
 
 __all__ = [
@@ -152,13 +152,17 @@ def signed_digits_from_limbs(limbs: torch.Tensor, c: int) -> torch.Tensor:
 
 def combine_window_sums(host_group, window_pts, c: int):
     """Exact host combination: Σ_w 2^(c·w) · S_w, MSB window first (the
-    ``msm.combine`` span)."""
+    ``msm.combine`` span).  The chain runs in C (``native.combine_windows``,
+    the same triple); the loop here where the C takes no such inputs or the
+    group has no field of ``fields``."""
     with span("msm.combine"):
-        total = host_group.zero()
-        for wp in reversed(window_pts):
-            for _ in range(c):
-                total = host_group.double(total)
-            total = host_group.add(total, wp)
+        total = combine_windows(getattr(host_group, "F", None), window_pts, c)
+        if total is None:
+            total = host_group.zero()
+            for wp in reversed(window_pts):
+                for _ in range(c):
+                    total = host_group.double(total)
+                total = host_group.add(total, wp)
     return total
 
 

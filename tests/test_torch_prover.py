@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from go_snark_study_tpu_torch import native
+
 # the tier-1 run gives each of its workers a share of the cores; torch's
 # own thread pool on top of that oversubscribes them
 torch.set_num_threads(1)
@@ -103,15 +105,17 @@ def port_run():
     r1cs = mul_chain_r1cs(N_CONSTRAINTS, seed=CIRCUIT_SEED)
     rng = random.Random(RNG_SEED)
     setup = fast.setup(r1cs, rng=rng)
+    chains = dict(native.CHAINS)
     proof = fast.prove(r1cs, setup.pk, rng=rng)
-    return r1cs, setup, proof
+    chains = {k: native.CHAINS[k] - chains[k] for k in chains}
+    return r1cs, setup, proof, chains
 
 
 def test_port_setup_matches_jax_vk(golden, port_run):
     from go_snark_study_tpu_torch.bn128 import default_bn128
 
     meta, _ = golden
-    _, setup, _ = port_run
+    _, setup, _, _ = port_run
     bn = default_bn128()
     vk = meta["vk"]
     assert bn.g1.equal(setup.vk.g1.alpha, g1_from(vk["alpha"]))
@@ -129,7 +133,7 @@ def test_port_device_key_is_jax_device_key(golden, port_run):
     from go_snark_study_tpu_torch.interop import port_to_jax
 
     _, arrays = golden
-    _, setup, _ = port_run
+    _, setup, _, _ = port_run
     dpk = setup.pk._device
     for k in KEY_FIELDS:
         pt = getattr(dpk, k)
@@ -145,7 +149,9 @@ def test_port_proof_matches_jax_and_verifies(golden, port_run):
     from go_snark_study_tpu_torch.models.groth16 import verify_proof
 
     meta, _ = golden
-    r1cs, setup, proof = port_run
+    r1cs, setup, proof, chains = port_run
+    if native._load_pyints():  # the five combinations and six multiplications ran in C
+        assert chains == {"native": 11, "python": 0}
     bn = default_bn128()
     want = meta["proof"]
     assert bn.g1.equal(proof.pi_a, g1_from(want["pi_a"]))
