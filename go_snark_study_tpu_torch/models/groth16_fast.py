@@ -68,6 +68,21 @@ def _next_pow2(n: int) -> int:
     return 1 << max(1, (n - 1).bit_length())
 
 
+def _group_budget(device) -> dict:
+    """The engines' window-group budget (``MSMEngine(group_bytes=)``): on a
+    card its memory, elsewhere the JAX engine's default.  That default, 3
+    GiB counted in the JAX layout's 384 bytes a G1 lane and window, was
+    sized for a TPU; on the card it cut a 2^21 MSM's 20 windows into
+    launches of 4 (G1) and 2 (G2) windows of 2,048 lanes and 1,024 serial
+    steps, too few lanes to fill the card.  The port's plan takes a fraction
+    of what the budget counts: a 2^21 G1 MSM in one group peaks below 4 GB.
+    Grouping leaves each window's additions in their order, so the window
+    sums are the same integers."""
+    if device.type != "cuda":
+        return {}
+    return {"group_bytes": torch.cuda.get_device_properties(device).total_memory}
+
+
 @dataclass
 class DevicePk:
     """Device-resident proving key: affine point pytrees, lane-padded.
@@ -110,10 +125,11 @@ class FastGroth16:
         self.g1b, self.g2b = G1Batch(self.Kq), G2Batch(self.Kq)
         self.ntt = NTTEngine(self.Kr)
         bn = self.ctx.bn
-        self.msm_g1 = MSMEngine(self.g1b, bn.g1, C.R)
+        budget = _group_budget(self.device)
+        self.msm_g1 = MSMEngine(self.g1b, bn.g1, C.R, **budget)
         # no small chunk family for G2, as in the JAX package: the small
         # tiers' G2 MSM pads into the big chunks (inert while unchunked)
-        self.msm_g2 = MSMEngine(self.g2b, bn.g2, C.R, small_chunk_lanes=0)
+        self.msm_g2 = MSMEngine(self.g2b, bn.g2, C.R, small_chunk_lanes=0, **budget)
         self._fb_g1: Optional[FixedBaseEngine] = None
         self._fb_g2: Optional[FixedBaseEngine] = None
         self._sharded_provers: dict = {}
